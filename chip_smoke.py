@@ -5,13 +5,17 @@
 
 Needs one CUDA card, ``nvcc`` (CUDA_HOME, default /usr/local/cuda) and the
 checkout's ``src/``; it builds every kernel from the sources at first use.
-Phases, each of which fails the run (non-zero exit) on a failed check:
+Phases, each of which fails the run (non-zero exit) on a failed check, with
+each phase's wall time printed:
 
-  1. print the card (name, power limit) and build the kernels, timed;
+  1. print the card (name, power limit) and build both kernels (flash
+     attention, selective scan), one nvcc each, in parallel, timed, with
+     ptxas's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card, over
-     the reference's test sweep plus the serve path's shape, with times
-     for the kernel, the plain version, one PyTorch library call computing
-     the same function, and the bound (least time the card could take);
+     the reference's test sweep, a ragged case and the serve paths'
+     shapes, with times for the kernel, the plain version, one PyTorch
+     library call computing the same function (where there is one), and
+     the bound (least time the card could take);
   3. serve tinyllama-1.1b at its full config (22 layers, d_model 2048,
      bf16, random weights from a seed) through
      ``repro_torch.launch.serve.Server`` and the port's EmeraldRuntime,
@@ -20,7 +24,11 @@ Phases, each of which fails the run (non-zero exit) on a failed check:
      read just after;
   4. run the same model at 2 layers, full width, on the card (bf16, kernel)
      and on the CPU (f32, plain version) from one param tree, and compare
-     the logits.
+     the logits;
+  3b. serve falcon-mamba-7b at its full config (64 Mamba layers, d_model
+     4096, bf16, random weights from a seed) the same way: 4 requests in
+     one batch; every prefill launches the selective scan once per layer;
+  4b. falcon-mamba at 2 layers, full width, card against CPU, as phase 4.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +36,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -42,7 +51,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # NVIDIA data-sheet peaks of one H100 SXM (dense, 700 W)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# exponentials on the special-function units: 16 per clock per SM, 132
+# SMs, at the H100 SXM's 1980 MHz boost clock (data sheet)
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+H_TOL = 2e-4            # the selective scan's h_last (tests/test_kernels.py)
 # logits of a 2-layer full-width model, bf16 on the card vs f32 on the
 # CPU: bf16 keeps ~3 significant digits per rounding, so a norm-wise
 # relative error of a few 1e-3 is expected; 5e-2 fails only a real fault
@@ -137,12 +150,8 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None):
     return rec
 
 
-def phase_kernels(serve_shape):
-    print("== phase 2: kernels against their plain versions on the card",
-          flush=True)
+def phase_flash(serve_shape):
     import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cases = []
     # the reference's sweep (tests/test_kernels.py)
     for (B, H, KV, S, D) in [(1, 2, 2, 128, 128), (2, 4, 2, 256, 128),
@@ -176,11 +185,107 @@ def phase_kernels(serve_shape):
     return slice_rec
 
 
+# ------------------------------------------------------------- selective scan
+def ss_bound_ms(Bt, L, di, N, dtype):
+    """Least time for the call: x, dt, A, B, C, D, h0 read once and y,
+    h_last written once over HBM bandwidth, or the Bt*L*di*N
+    exponentials over the special-function units' rate (the recurrence's
+    ~4 f32 FLOPs per exponential at 67 TFLOP/s take less); the larger
+    bounds it."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = (es * (2 * Bt * L * di + 2 * Bt * L * N)      # x, y; B, C
+              + 4 * (Bt * L * di + di * N + di + 2 * Bt * di * N))
+    exps = Bt * L * di * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / SFU_EXP_PER_S, 4 * exps / PEAK_FLOPS["float32"]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
+    """Kernel vs plain version on one seeded input (the reference's
+    ``_scan_args`` draws; x, B, C in the dtype, dt, A, D, h0 f32). With
+    ``proj_width``, B and C are slices of one (Bt, L, proj_width) tensor,
+    as the model's x_proj output. Returns the record."""
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel, ref
+    dt_ = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(L + di)
+    x = torch.randn((Bt, L, di), generator=g, device="cuda").to(dt_)
+    dt = torch.empty((Bt, L, di), device="cuda").uniform_(1e-3, 0.1,
+                                                          generator=g)
+    A = -torch.empty((di, N), device="cuda").uniform_(0.5, 2.0, generator=g)
+    if proj_width:
+        proj = torch.randn((Bt, L, proj_width), generator=g,
+                           device="cuda").to(dt_)
+        r = proj_width - 2 * N
+        B, C = proj[..., r:r + N], proj[..., r + N:]
+    else:
+        B = torch.randn((Bt, L, N), generator=g, device="cuda").to(dt_)
+        C = torch.randn((Bt, L, N), generator=g, device="cuda").to(dt_)
+    D = torch.randn((di,), generator=g, device="cuda")
+    h0 = torch.randn((Bt, di, N), generator=g, device="cuda")
+    args = (x, dt, A, B, C, D, h0)
+    y, h = kernel.selective_scan_fwd(*args)
+    y_ref, h_ref = ref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    tol = TOL[dtype_name]
+    err = (y.float() - y_ref.float()).abs().max().item()
+    h_err = (h - h_ref).abs().max().item()
+    good = bool(torch.allclose(y.float(), y_ref.float(), atol=tol, rtol=tol)
+                and torch.allclose(h, h_ref, atol=H_TOL, rtol=0))
+    rec = {"shape": [Bt, L, di, N], "dtype": dtype_name,
+           "strided_bc": bool(proj_width), "max_abs_err": err,
+           "h_max_abs_err": h_err, "tol": tol, "h_tol": H_TOL, "ok": good}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: kernel.selective_scan_fwd(*args))
+        rec["plain_ms"] = cuda_ms(lambda: ref.selective_scan_ref(*args),
+                                  iters=5)
+    # no single PyTorch call computes a selective scan
+    rec["library_ms"] = None
+    rec["bound_ms"], rec["bound_by"] = ss_bound_ms(Bt, L, di, N, dtype_name)
+    return rec
+
+
+def phase_scan(serve_shape, dt_rank):
+    import torch
+    recs = []
+    for (Bt, L, di, N) in [(1, 64, 32, 8), (2, 128, 64, 16),
+                           (2, 96, 48, 16),        # the reference's sweep
+                           (1, 200, 8000, 16)]:    # ragged L tile and di block
+        for dt in ("float32", "bfloat16"):
+            rec = ss_case(Bt, L, di, N, dt)
+            recs.append(rec)
+            print("  selective_scan_fwd " + json.dumps(rec), flush=True)
+    Bt, L, di, N = serve_shape
+    slice_rec = ss_case(Bt, L, di, N, "bfloat16", proj_width=dt_rank + 2 * N,
+                        timed=True)
+    print("  selective_scan_fwd (serve shape) " + json.dumps(slice_rec),
+          flush=True)
+    torch.cuda.synchronize()
+    bad = [r for r in recs + [slice_rec] if not r["ok"]]
+    check(not bad, f"selective_scan_fwd agrees with selective_scan_ref on "
+          f"{len(recs) + 1} cases (y f32 2e-5, bf16 2e-2; h_last 2e-4)"
+          + (f"; failing: {bad}" if bad else ""))
+    return slice_rec
+
+
+def phase_kernels(fa_shape, ss_shape, dt_rank):
+    print("== phase 2: kernels against their plain versions on the card",
+          flush=True)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa = phase_flash(fa_shape)
+    ss = phase_scan(ss_shape, dt_rank)
+    torch.cuda.empty_cache()
+    return fa, ss
+
+
 # ---------------------------------------------------------------------- serve
-def serve_config():
+def serve_config(arch):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig, ShapeProfile
-    cfg = get_config("tinyllama-1.1b")
+    cfg = get_config(arch)
     return cfg, RunConfig(model=cfg, shape=ShapeProfile("serve", 2048, 4,
                                                         "decode"),
                           remat="none")
@@ -195,27 +300,53 @@ def make_requests(cfg, n=8, max_new=32, seed=0):
         for rid in range(n)]
 
 
-def phase_serve(cfg, run, reqs):
-    print("== phase 3: serve tinyllama-1.1b (full config) through the "
-          "Emerald runtime on the card", flush=True)
+def packed_len(run, reqs):
+    """The first batch's packed prompt length (the server packs to the
+    shortest prompt)."""
+    return min(len(r.prompt) for r in reqs[:run.shape.global_batch])
+
+
+def init_on_card(model, seed):
+    """Random params drawn on the card and placed on the host (the local
+    tier the Server expects): a 7 B model's f32 draws would not fit the
+    host twice over, and the card draws them in well under a second."""
+    import torch
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(
+        seed), device="cpu")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return params, time.perf_counter() - t0
+
+
+def kernel_counters():
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.mamba_scan import kernel as ss
+    return {"flash_attention_fwd": fa, "selective_scan_fwd": ss}
+
+
+def phase_serve(label, cfg, run, reqs, path_kernel):
+    """Serve ``reqs`` through the Server on the card; checks that every
+    prefill launched ``path_kernel`` once per layer and no other kernel."""
+    print(f"== phase {label}: serve {cfg.name} (full config) through the "
+          f"Emerald runtime on the card", flush=True)
     import torch
     from repro_torch._tree import tree_leaves
     from repro_torch.cloud.wire import manifest_of
-    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.launch.serve import Server
     from repro_torch.models.model_zoo import Model
 
-    check(cfg.n_layers == 22 and cfg.d_model == 2048
-          and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
-    t0 = time.perf_counter()
-    params = Model(run).init_params(torch.Generator().manual_seed(0))
+    params, init_s = init_on_card(Model(run), seed=0)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"  params: {n_params} on the host ({cfg.param_dtype}), init "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"  params: {n_params} on the host ({cfg.param_dtype}), drawn on "
+          f"the card in {init_s:.3f} s", flush=True)
     srv = Server(run, params)
     check(srv.tiers["cloud"].device.type == "cuda", "cloud tier on the card")
-    prefill_s, decode_s, logits_seen = [], [], []
+    prefill_s, decode_s, logits_seen, decode_up = [], [], [], []
     run_prefill, submit_decode = srv.ex_prefill.run, srv.ex_decode.submit
+
+    def up_bytes():
+        return srv.mdss.bytes_moved.get(("local", "cloud"), 0)
 
     def timed_prefill(*a, **k):
         t = time.perf_counter()
@@ -225,32 +356,40 @@ def phase_serve(cfg, run, reqs):
         return out
 
     class _Timed:
-        def __init__(self, handle, t):
-            self.handle, self.t = handle, t
+        def __init__(self, handle, t, up):
+            self.handle, self.t, self.up = handle, t, up
 
         def result(self, *a, **k):
             out = self.handle.result(*a, **k)
             decode_s.append(time.perf_counter() - self.t)
+            decode_up.append(up_bytes() - self.up)
             logits_seen.append(out["logits"])
             return out
 
+    def timed_submit(*a, **k):
+        t, up = time.perf_counter(), up_bytes()
+        return _Timed(submit_decode(*a, **k), t, up)
+
     srv.ex_prefill.run = timed_prefill
-    srv.ex_decode.submit = lambda *a, **k: _Timed(submit_decode(*a, **k),
-                                                  time.perf_counter())
+    srv.ex_decode.submit = timed_submit
     for r in reqs:
         srv.submit(r)
-    kernel.launches = 0
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     try:
         done = []
         while srv.queue:
             done += srv.step_batch()
         serve_s = time.perf_counter() - t0
-        launches = {"flash_attention_fwd": kernel.launches}
+        launches = {n: mod.launches for n, mod in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
         rep = srv.transfer_report()
         spans = srv.runtime.tracer.spans()
-        # the cost of hashing what the serve path puts (trouble spot of
-        # the port): the host params and one device KV cache
+        # the cost of hashing what the serve path puts: the host params
+        # and one device cache
         t = time.perf_counter()
         manifest_of(params)
         params_hash_s = time.perf_counter() - t
@@ -271,12 +410,21 @@ def phase_serve(cfg, run, reqs):
                   for l in logits_seen),
           f"{len(logits_seen)} fetched logits are finite, ({B}, "
           f"{cfg.vocab_padded})")
-    check(launches["flash_attention_fwd"] == cfg.n_layers
-          * srv.stats["prefills"],
-          f"flash launches {launches['flash_attention_fwd']} = "
-          f"{cfg.n_layers} layers x {srv.stats['prefills']} prefills")
+    for name, n in launches.items():
+        want = cfg.n_layers * srv.stats["prefills"] \
+            if name == path_kernel else 0
+        check(n == want, f"{name} launches {n} = {want}"
+              + (f" ({cfg.n_layers} layers x {srv.stats['prefills']} "
+                 f"prefills)" if want else " (not on this path)"))
     check(rep["decode_offloads"] == srv.stats["decode_calls"],
           f"every decode was an offload ({rep['decode_offloads']})")
+    # code-only: a decode ships neither params nor cache, only the tokens
+    # sampled from the last logits (MDSS counts them when they are new)
+    tok_bytes = B * 4
+    check(len(decode_up) == srv.stats["decode_calls"]
+          and all(0 <= n <= tok_bytes for n in decode_up),
+          f"every decode shipped only its tokens up (<= {tok_bytes} B "
+          f"each; {sum(decode_up)} B in all)")
     fetched = len(logits_seen) * B * cfg.vocab_padded * 4
     back = rep["bytes_moved"].get(("cloud", "local"), 0)
     check(0 < back <= fetched,
@@ -290,9 +438,11 @@ def phase_serve(cfg, run, reqs):
                for st in ("prefill", "decode")}
     out_tokens = sum(len(r.tokens) for r in done)
     stats = {
-        "requests": len(done), "prompt_lens": [len(r.prompt) for r in reqs],
+        "arch": cfg.name, "requests": len(done),
+        "prompt_lens": [len(r.prompt) for r in reqs],
         "prefills": srv.stats["prefills"],
         "decode_calls": srv.stats["decode_calls"],
+        "decode_code_only": rep["decode_code_only"],
         "prefill_s": prefill_s,
         "decode_ms_per_token": 1e3 * sum(decode_s) / max(len(decode_s), 1),
         "tokens_out": out_tokens, "serve_s": serve_s,
@@ -303,20 +453,24 @@ def phase_serve(cfg, run, reqs):
         "params_hash_s": params_hash_s, "params_bytes": sum(
             x.nbytes for x in tree_leaves(params)),
         "cache_hash_s": cache_hash_s, "cache_bytes": cache_bytes,
-        "peak_device_bytes": torch.cuda.max_memory_allocated(),
+        "peak_device_bytes": peak, "launches": launches,
     }
     print("  serve " + json.dumps(stats), flush=True)
+    del srv, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
 # ----------------------------------------------------------- model vs plain
-def phase_model_parity(cfg):
-    print("== phase 4: 2-layer full-width model, card (bf16, kernel) vs "
-          "CPU (f32, plain)", flush=True)
+def phase_model_parity(label, cfg):
+    print(f"== phase {label}: {cfg.name} at 2 layers, full width, card "
+          f"(bf16, kernel) vs CPU (f32, plain)", flush=True)
     import torch
     from repro_torch._tree import tree_map
     from repro_torch.configs.base import RunConfig, ShapeProfile
     from repro_torch.models.model_zoo import Model
+    from repro_torch.models.params import torch_dtype
     cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
                                 dtype="float32")
     cfg16 = dataclasses.replace(cfg32, param_dtype="bfloat16",
@@ -325,7 +479,10 @@ def phase_model_parity(cfg):
     m32 = Model(RunConfig(model=cfg32, shape=shape, remat="none"))
     m16 = Model(RunConfig(model=cfg16, shape=shape, remat="none"))
     p32 = m32.init_params(torch.Generator().manual_seed(1))
-    p16 = tree_map(lambda t: t.to("cuda", torch.bfloat16), p32)
+    # one tree: the bf16 model's params are the f32 ones rounded, except
+    # the leaves its template keeps in f32 (the SSM's A_log, dt_bias, D)
+    p16 = tree_map(lambda t, s: t.to("cuda", torch_dtype(
+        s.dtype or "bfloat16")), p32, m16.template)
     g = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=g,
                          dtype=torch.int32)
@@ -343,7 +500,8 @@ def phase_model_parity(cfg):
     b = torch.cat([q for _, q in pairs])
     rel = float((b - a).norm() / a.norm())
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    print("  parity " + json.dumps({"rel_err": rel, "rel_tol": LOGITS_REL_TOL,
+    print("  parity " + json.dumps({"arch": cfg.name, "rel_err": rel,
+                                    "rel_tol": LOGITS_REL_TOL,
                                     "argmax_agree": agree,
                                     "argmax_min": ARGMAX_AGREE_MIN,
                                     "rows": int(a.shape[0])}), flush=True)
@@ -352,6 +510,15 @@ def phase_model_parity(cfg):
           f"logits rel err {rel:.3e} <= {LOGITS_REL_TOL}")
     check(agree >= ARGMAX_AGREE_MIN,
           f"argmax agreement {agree:.3f} >= {ARGMAX_AGREE_MIN}")
+    del p16, c16
+    torch.cuda.empty_cache()
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"  [{name}: {time.perf_counter() - t0:.3f} s wall]", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------- main
@@ -361,15 +528,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels.flash_attention import kernel
+    t_start = time.perf_counter()
+    counters = kernel_counters()
 
     print("== phase 1: card and kernel builds", flush=True)
     card = card_line()
     print(f"  card: {card}", flush=True)
-    builds = {"flash_attention_fwd": kernel.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(builds)) as pool:    # one nvcc per source
-        futs = {n: pool.submit(fn) for n, fn in builds.items()}
+    with ThreadPoolExecutor(len(counters)) as pool:   # one nvcc per source
+        futs = {n: pool.submit(mod.build) for n, mod in counters.items()}
         libs = {n: str(f.result()) for n, f in futs.items()}
     print(f"  built {libs} in {time.perf_counter() - t0:.3f} s", flush=True)
     for lib in libs.values():       # registers and spills of each kernel
@@ -379,25 +546,47 @@ def main() -> int:
                                         "spill")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
-    cfg, run = serve_config()
+    cfg, run = serve_config("tinyllama-1.1b")
     reqs = make_requests(cfg)
-    B = run.shape.global_batch
-    plen = min(len(r.prompt) for r in reqs[:B])    # first batch's packing
-    serve_shape = (B, plen, cfg.n_heads, cfg.kv_heads, cfg.hdim)
-    fa = phase_kernels(serve_shape)
-    launches = phase_serve(cfg, run, reqs)
-    phase_model_parity(cfg)
+    fa_shape = (run.shape.global_batch, packed_len(run, reqs), cfg.n_heads,
+                cfg.kv_heads, cfg.hdim)
+    mcfg, mrun = serve_config("falcon-mamba-7b")
+    mreqs = make_requests(mcfg, n=4, seed=1)
+    ss_shape = (mrun.shape.global_batch, packed_len(mrun, mreqs),
+                mcfg.d_inner, mcfg.ssm_state)
+    fa, ss = timed("phase 2", phase_kernels, fa_shape, ss_shape,
+                   mcfg.dt_rank_)
 
-    record = {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
-        "launches": launches["flash_attention_fwd"],
-        "max_abs_err": fa["max_abs_err"], "ms": fa["ms"],
-        "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
-        "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
-        "shape": fa["shape"], "dtype": fa["dtype"]}]}
+    check(cfg.n_layers == 22 and cfg.d_model == 2048
+          and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
+    fa_launches = timed("phase 3", phase_serve, "3", cfg, run, reqs,
+                        "flash_attention_fwd")
+    timed("phase 4", phase_model_parity, "4", cfg)
+    check(mcfg.n_layers == 64 and mcfg.d_model == 4096
+          and mcfg.param_dtype == "bfloat16", "full falcon-mamba-7b config")
+    ss_launches = timed("phase 3b", phase_serve, "3b", mcfg, mrun, mreqs,
+                        "selective_scan_fwd")
+    timed("phase 4b", phase_model_parity, "4b", mcfg)
+
+    def entry(name, source, replaces, launches, rec):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "shape", "dtype")}}
+
+    record = {"kernels": [
+        entry("flash_attention_fwd",
+              "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention_fwd.cu",
+              "src/repro/kernels/flash_attention/kernel.py:71",
+              fa_launches["flash_attention_fwd"], fa),
+        entry("selective_scan_fwd",
+              "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
+              "src/repro/kernels/mamba_scan/kernel.py:54",
+              ss_launches["selective_scan_fwd"], ss)]}
+    print(f"  [total: {time.perf_counter() - t_start:.3f} s wall]",
+          flush=True)
     print(card)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,8 @@
 The CUDA source (``csrc/flash_attention_fwd.cu``) replaces the TPU kernel
 ``flash_attention_fwd`` of ``src/repro/kernels/flash_attention/kernel.py``.
 It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C entry point and loaded with ``ctypes``. The build happens at
-first use, into ``build/repro_torch/`` under the checkout, keyed by a hash
-of the source and flags, so a fresh checkout builds it from the sources
-alone. Importing this module needs neither ``nvcc`` nor a card.
+plain C entry point (``kernels/_build.py``, at first use) and loaded with
+``ctypes``. Importing this module needs neither ``nvcc`` nor a card.
 
 ``launches`` counts kernel launches: it is incremented where the kernel is
 launched and nowhere else.
@@ -14,19 +12,14 @@ launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,38 +28,9 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    found = cand if os.path.exists(cand) else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the flash-"
-                           "attention kernel is built from source at first use")
-    return found
-
-
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    return BUILD_ROOT / f"flash_attention_fwd_{key}.so"
-
-
 def build() -> Path:
-    """Compile the kernel if this source has not been built yet; returns
-    the shared library's path. Raises with nvcc's output on failure."""
-    out = library_path()
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    (out.with_suffix(".ptxas.txt")).write_text(res.stderr)
-    return out
+    """The kernel's shared library, compiled if this source is new."""
+    return _build.build(SOURCE)
 
 
 def _load():

@@ -18,8 +18,11 @@ fresh caches are handed in on the ``local`` tier (the host) and MDSS
 ships them to the card. ``FrontDoor`` (request coalescing) comes with
 ``core/batching`` in a later slice.
 
-CLI (full tinyllama-1.1b on the card, random weights from a seed):
+CLI (a full config on the card, random weights from a seed, drawn on
+the card and kept on the host; or its tiny test config on the host):
   python -m repro_torch.launch.serve --arch tinyllama-1.1b
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b
+  python -m repro_torch.launch.serve --arch falcon-mamba-7b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -197,7 +200,12 @@ def main():
     run = RunConfig(model=cfg, shape=ShapeProfile("serve", 128, 4, "decode"),
                     remat="none")
     model = Model(run)
-    params = model.init_params(torch.Generator().manual_seed(args.seed))
+    # drawn on the serving device (a 7 B model's f32 draws would not fit
+    # the host twice over), placed on the host, the local tier
+    gen = torch.Generator(device=args.device or "cuda:0")
+    params = model.init_params(gen.manual_seed(args.seed), device="cpu")
+    if gen.device.type == "cuda":
+        torch.cuda.empty_cache()
     srv = Server(run, params, device=args.device)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):

@@ -43,20 +43,20 @@ class Model:
     # thread: the mode is set inside each step.
     @property
     def prefill(self) -> Callable:
-        cfg = self.cfg
+        cfg, run = self.cfg, self.run
 
         def fn(params, batch, cache):
             with torch.no_grad():
-                return tfm.forward_prefill(cfg, params, batch, cache)
+                return tfm.forward_prefill(cfg, run, params, batch, cache)
 
         return fn
 
     @property
     def decode_step(self) -> Callable:
-        cfg = self.cfg
+        cfg, run = self.cfg, self.run
 
         def fn(params, tokens, cache):
             with torch.no_grad():
-                return tfm.forward_decode(cfg, params, tokens, cache)
+                return tfm.forward_decode(cfg, run, params, tokens, cache)
 
         return fn

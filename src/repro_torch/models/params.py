@@ -69,7 +69,7 @@ def init_params(template, generator: torch.Generator, param_dtype: str,
             std = s.scale * (1.0 / math.sqrt(fan_in) if fan_in else 0.02)
             v = torch.randn(s.shape, generator=generator, device=gdev,
                             dtype=torch.float32)
-            return (v * std).to(device, dt)
+            return v.mul_(std).to(device, dt)      # in place: one f32 copy
         raise ValueError(f"unknown init {s.init}")
 
     return _tree.tree_map(mk, template)

@@ -1,4 +1,4 @@
-"""LM assembler for attention-dense architectures.
+"""LM assembler for attention-dense and Mamba-only architectures.
 
 The per-layer block types of ``ModelConfig.block_type`` are compressed
 into *stages* ``(pattern, repeats)`` and each stage's parameters are
@@ -12,8 +12,9 @@ Modes:
   * ``prefill`` — full forward that also fills decode caches,
   * ``decode``  — one token against caches.
 
-Only ``attn_dense`` blocks are ported; MoE, Mamba, encoder-decoder, the
-frontend stubs and MTP raise ``NotImplementedError``.
+Ported blocks: ``attn_dense`` (GQA attention + MLP) and ``mamba_only``
+(Mamba mixer, no MLP). MoE, the hybrid Mamba blocks, encoder-decoder,
+the frontend stubs and MTP raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,12 +23,16 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import _tree
-from repro_torch.configs.base import ATTN_DENSE, ModelConfig
+from repro_torch.configs.base import (ATTN_DENSE, MAMBA_ONLY, ModelConfig,
+                                      RunConfig)
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.layers import (embed, embed_template, lm_logits, mlp,
                                        mlp_template, rmsnorm, rmsnorm_template)
 from repro_torch.models.params import stack_specs
+
+_PORTED_BLOCKS = (ATTN_DENSE, MAMBA_ONLY)
 
 
 def check_ported(cfg: ModelConfig):
@@ -38,8 +43,9 @@ def check_ported(cfg: ModelConfig):
         ("multi-token prediction", cfg.mtp)) if on]
     missing += sorted({bt for bt in (cfg.block_type(i)
                                      for i in range(cfg.n_layers))
-                       if bt != ATTN_DENSE})
-    if cfg.attn_type != "gqa":
+                       if bt not in _PORTED_BLOCKS})
+    attention_free = cfg.family == "ssm" and cfg.attn_type == "none"
+    if cfg.attn_type != "gqa" and not attention_free:
         missing.append(f"{cfg.attn_type} attention")
     if missing:
         raise NotImplementedError(
@@ -50,16 +56,27 @@ def check_ported(cfg: ModelConfig):
 # Block template / apply
 # ---------------------------------------------------------------------------
 
-def block_template(cfg: ModelConfig) -> dict:
+def block_template(cfg: ModelConfig, bt: str) -> dict:
     d = cfg.d_model
+    if bt == MAMBA_ONLY:
+        return {"ln1": rmsnorm_template(d), "mixer": mam.mamba_template(cfg)}
     return {"ln1": rmsnorm_template(d), "attn": attn.attn_template(cfg),
             "ln2": rmsnorm_template(d), "mlp": mlp_template(cfg)}
 
 
-def block_apply(cfg: ModelConfig, p, x, *, mode: str, cache=None,
-                pos: Optional[int] = None):
-    """One attention-dense block. Returns (x, cache)."""
+def block_apply(cfg: ModelConfig, run: RunConfig, bt: str, p, x, *,
+                mode: str, cache=None, pos: Optional[int] = None):
+    """One attention-dense or Mamba-only block. Returns (x, cache)."""
     h = rmsnorm(cfg, p["ln1"], x)
+    if bt == MAMBA_ONLY:
+        if mode == "decode":
+            a, cache = mam.mamba_decode(cfg, p["mixer"], h, cache)
+        else:
+            a, cache = mam.mamba_full(
+                cfg, p["mixer"], h,
+                cache=cache if mode == "prefill" else None,
+                chunk=run.ssm_chunk, scan_dtype=run.ssm_scan_dtype)
+        return x + a, cache
     if mode == "decode":
         a, cache = attn.attn_decode(cfg, p["attn"], h, cache, pos)
     else:
@@ -78,7 +95,8 @@ def model_template(cfg: ModelConfig) -> dict:
     check_ported(cfg)
     t: Dict[str, Any] = {"embed": embed_template(cfg)}
     for si, (pattern, reps) in enumerate(cfg.stages()):
-        stage = {f"pos_{j}": block_template(cfg) for j in range(len(pattern))}
+        stage = {f"pos_{j}": block_template(cfg, bt)
+                 for j, bt in enumerate(pattern)}
         t[f"stage_{si}"] = stack_specs(stage, reps)
     t["final_norm"] = rmsnorm_template(cfg.d_model)
     return t
@@ -92,7 +110,7 @@ def _stack(trees):
     return _tree.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
-def run_stages(cfg, params, x, *, mode, caches=None, pos=None):
+def run_stages(cfg, run, params, x, *, mode, caches=None, pos=None):
     """Run every stage. Returns (x, new_caches)."""
     new_caches = {} if caches is not None else None
     for si, (pattern, reps) in enumerate(cfg.stages()):
@@ -101,11 +119,12 @@ def run_stages(cfg, params, x, *, mode, caches=None, pos=None):
         c_in = caches.get(key) if caches is not None else None
         c_out = {f"pos_{j}": [] for j in range(len(pattern))}
         for r in range(reps):
-            for j in range(len(pattern)):
+            for j, bt in enumerate(pattern):
                 pj = _tree.tree_map(lambda a: a[r], sp[f"pos_{j}"])
                 cj = None if c_in is None else \
                     _tree.tree_map(lambda a: a[r], c_in[f"pos_{j}"])
-                x, cj = block_apply(cfg, pj, x, mode=mode, cache=cj, pos=pos)
+                x, cj = block_apply(cfg, run, bt, pj, x, mode=mode, cache=cj,
+                                    pos=pos)
                 if cj is not None:
                     c_out[f"pos_{j}"].append(cj)
         if new_caches is not None:
@@ -117,10 +136,10 @@ def run_stages(cfg, params, x, *, mode, caches=None, pos=None):
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def forward_prefill(cfg, params, batch, cache):
+def forward_prefill(cfg, run, params, batch, cache):
     """Full forward filling caches; returns (last-position logits, cache)."""
     x = embed(cfg, params["embed"], batch["tokens"])
-    x, cache = run_stages(cfg, params, x, mode="prefill", caches=cache)
+    x, cache = run_stages(cfg, run, params, x, mode="prefill", caches=cache)
     x = rmsnorm(cfg, params["final_norm"], x[:, -1:, :])
     return lm_logits(cfg, params["embed"], x)[:, 0], cache
 
@@ -131,11 +150,11 @@ def cache_position(cache) -> int:
     return int(cache["stage_0"]["pos_0"]["pos"][0])
 
 
-def forward_decode(cfg, params, tokens, cache):
+def forward_decode(cfg, run, params, tokens, cache):
     """tokens: (B,) int. Returns (logits (B,V), cache)."""
     pos = cache_position(cache)
     x = embed(cfg, params["embed"], tokens[:, None])
-    x, cache = run_stages(cfg, params, x, mode="decode", caches=cache,
+    x, cache = run_stages(cfg, run, params, x, mode="decode", caches=cache,
                           pos=pos)
     x = rmsnorm(cfg, params["final_norm"], x)
     return lm_logits(cfg, params["embed"], x)[:, 0], cache
@@ -150,11 +169,12 @@ def cache_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
     check_ported(cfg)
     val: Dict[str, Any] = {}
     for si, (pattern, reps) in enumerate(cfg.stages()):
-        entry = attn.attn_cache_spec(cfg, batch, seq)
         val[f"stage_{si}"] = {
             f"pos_{j}": _tree.tree_map(
-                lambda s: TensorSpec((reps,) + s.shape, s.dtype), entry)
-            for j in range(len(pattern))}
+                lambda s: TensorSpec((reps,) + s.shape, s.dtype),
+                mam.mamba_cache_spec(cfg, batch, seq) if bt == MAMBA_ONLY
+                else attn.attn_cache_spec(cfg, batch, seq))
+            for j, bt in enumerate(pattern)}
     return val
 
 

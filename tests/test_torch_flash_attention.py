@@ -16,6 +16,7 @@ import torch
 from repro.kernels.flash_attention import ref as jref
 from repro.kernels.flash_attention.kernel import flash_attention_fwd as jfwd
 from repro.kernels.flash_attention.ops import flash_attention_kernel_call
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel, ops, ref
 
 # the reference's tolerances (tests/test_kernels.py)
@@ -147,7 +148,7 @@ def test_kernel_wrapper_refuses_what_it_cannot_run():
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.setattr(kernel, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernel.build()
     assert not (tmp_path / "build").exists()

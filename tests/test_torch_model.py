@@ -1,6 +1,7 @@
-"""The port's dense LM held against the JAX package's ``Model`` on the
-same params (converted from the reference's ``init_params``) and the same
-numpy tokens, at reduced size on the CPU in f32.
+"""The port's LMs (dense tinyllama, Mamba-only falcon-mamba) held against
+the JAX package's ``Model`` on the same params (converted from the
+reference's ``init_params``) and the same numpy tokens, at reduced size
+on the CPU in f32.
 
 Tolerance: 1e-4 absolute on logits and caches of a whole f32 model (the
 two frameworks sum in different orders; measured differences are ~2e-6).
@@ -28,16 +29,23 @@ S, B = 32, 2
 ATOL = 1e-4
 
 
-def _pair(seed=0, **over):
-    jcfg = jreduced(jget_config("tinyllama-1.1b"), **over)
+def _pair(seed=0, arch="tinyllama-1.1b", run_kw=None, **over):
+    run_kw = run_kw or {}
+    jcfg = jreduced(jget_config(arch), **over)
     jrun = JRunConfig(model=jcfg, shape=JShape("d", S, B, "decode"),
-                      remat="none")
+                      remat="none", **run_kw)
     jm = JModel(jrun)
     jp = jm.init_params(jax.random.PRNGKey(seed))
-    cfg = reduced(get_config("tinyllama-1.1b"), **over)
+    cfg = reduced(get_config(arch), **over)
     m = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B, "decode"),
-                        remat="none"))
+                        remat="none", **run_kw))
     return jm, jp, m, from_reference(jax.tree.map(np.asarray, jp))
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k.key]
+    return tree
 
 
 def _tokens(n):
@@ -81,8 +89,8 @@ def test_from_reference_bfloat16_is_bit_exact():
     assert torch.equal(t, torch.from_numpy(x).to(torch.bfloat16))
 
 
-def test_prefill_caches_and_decode_match_reference():
-    jm, jp, m, p = _pair()
+def _prefill_and_decode_match_reference(arch):
+    jm, jp, m, p = _pair(arch=arch)
     toks = _tokens(12)
     jl, jc = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks)},
                                  jm.init_cache())
@@ -90,9 +98,7 @@ def test_prefill_caches_and_decode_match_reference():
                        m.init_cache())
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     for (path, leaf) in jax.tree_util.tree_leaves_with_path(jc):
-        t = tc
-        for k in path:
-            t = t[k.key]
+        t = _leaf(tc, path)
         assert t.dtype == _tree.from_numpy(np.asarray(leaf)).dtype
         np.testing.assert_allclose(t.numpy(), np.asarray(leaf), atol=ATOL)
     jstep = jax.jit(jm.decode_step)
@@ -105,10 +111,57 @@ def test_prefill_caches_and_decode_match_reference():
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
         jtok = jnp.argmax(jl, -1)
         ttok = torch.argmax(tl, -1).to(torch.int32)
-    np.testing.assert_allclose(tc["stage_0"]["pos_0"]["k"].numpy(),
-                               np.asarray(jc["stage_0"]["pos_0"]["k"]),
-                               atol=ATOL)
+    # every cache leaf (k, v / h, conv; pos) after the decode steps
+    for (path, leaf) in jax.tree_util.tree_leaves_with_path(jc):
+        np.testing.assert_allclose(_leaf(tc, path).numpy(), np.asarray(leaf),
+                                   atol=ATOL)
     assert transformer.cache_position(tc) == 16
+
+
+def test_prefill_caches_and_decode_match_reference():
+    _prefill_and_decode_match_reference("tinyllama-1.1b")
+
+
+def test_mamba_prefill_caches_and_decode_match_reference():
+    """Reduced falcon-mamba: logits, every cache leaf (h, conv, pos) and
+    4 greedy decode steps through the Mamba state and conv caches."""
+    _prefill_and_decode_match_reference("falcon-mamba-7b")
+
+
+def test_decode_prefill_consistency_ssm():
+    """The port's version of test_arch_smoke's SSM check: one decode
+    step through the Mamba state and conv caches matches a fresh prefill
+    over the longer sequence (the reference's atol/rtol 2e-3)."""
+    _, _, m, p = _pair(seed=1, arch="falcon-mamba-7b",
+                       run_kw={"ssm_chunk": 8})
+    toks = torch.from_numpy(_tokens(12))
+    logits, cache = m.prefill(p, {"tokens": toks}, m.init_cache())
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    logits2, cache = m.decode_step(p, tok, cache)
+    full = torch.cat([toks, tok[:, None]], 1)
+    logits_ref, _ = m.prefill(p, {"tokens": full}, m.init_cache())
+    np.testing.assert_allclose(logits2.numpy(), logits_ref.numpy(),
+                               atol=2e-3, rtol=2e-3)
+
+
+def test_from_reference_keeps_ssm_params_f32_in_a_bf16_tree():
+    """A_log, dt_bias and D are f32 params in a bf16 model, as the
+    reference's templates declare them."""
+    jcfg = jreduced(jget_config("falcon-mamba-7b"), param_dtype="bfloat16",
+                    dtype="bfloat16")
+    jp = JModel(JRunConfig(model=jcfg, shape=JShape("d", S, B, "decode"))
+                ).init_params(jax.random.PRNGKey(0))
+    p = from_reference(jax.tree.map(np.asarray, jp))
+    mixer = p["stage_0"]["pos_0"]["mixer"]
+    for k in ("A_log", "dt_bias", "D"):
+        assert mixer[k].dtype == torch.float32, k
+    assert mixer["in_proj"].dtype == torch.bfloat16
+    cfg = reduced(get_config("falcon-mamba-7b"), param_dtype="bfloat16",
+                  dtype="bfloat16")
+    own = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B, "decode"))
+                ).init_params(torch.Generator().manual_seed(0))
+    assert _tree.tree_map(lambda t: t.dtype, own) == \
+        _tree.tree_map(lambda t: t.dtype, p)
 
 
 def test_decode_prefill_consistency_dense():
@@ -128,9 +181,8 @@ def test_decode_prefill_consistency_dense():
     np.testing.assert_allclose(logits.numpy(), logits_ref.numpy(), atol=2e-4)
 
 
-def test_caches_handed_in_are_never_written():
-    """Stored caches are immutable MDSS values (digests are cached)."""
-    _, _, m, p = _pair()
+def _caches_handed_in_are_never_written(arch):
+    _, _, m, p = _pair(arch=arch)
     cache = m.init_cache()
     before = _tree.tree_map(torch.clone, cache)
     logits, c1 = m.prefill(p, {"tokens": torch.from_numpy(_tokens(8))},
@@ -142,7 +194,17 @@ def test_caches_handed_in_are_never_written():
                    zip(_tree.tree_leaves(a), _tree.tree_leaves(b)))
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "minicpm3-4b",
+def test_caches_handed_in_are_never_written():
+    """Stored caches are immutable MDSS values (digests are cached)."""
+    _caches_handed_in_are_never_written("tinyllama-1.1b")
+
+
+def test_mamba_caches_handed_in_are_never_written():
+    """The Mamba state, conv window and pos are new tensors each step."""
+    _caches_handed_in_are_never_written("falcon-mamba-7b")
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "minicpm3-4b",
                                   "qwen2-moe-a2.7b", "seamless-m4t-medium"])
 def test_unported_architectures_raise(arch):
     cfg = reduced(get_config(arch))

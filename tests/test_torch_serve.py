@@ -1,11 +1,13 @@
 """The port's ``Server`` held against the JAX ``Server`` on the CPU:
-reduced tinyllama-1.1b (2 layers) with params converted from the
-reference's ``init_params``, the same requests; identical greedy tokens,
-``stats``, ``transfer_report()`` and per-workflow event kinds."""
+reduced tinyllama-1.1b and falcon-mamba-7b (2 layers) with params
+converted from the reference's ``init_params``, the same requests;
+identical greedy tokens, ``stats``, ``transfer_report()`` and
+per-workflow event kinds."""
 import collections
 
 import jax
 import numpy as np
+import pytest
 
 from repro.configs import get_config as jget_config
 from repro.configs.base import RunConfig as JRunConfig
@@ -43,12 +45,13 @@ def _serve(srv, reqs):
         srv.close()
 
 
-def test_server_matches_reference_server():
-    jcfg = jreduced(jget_config("tinyllama-1.1b"), n_layers=2)
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "falcon-mamba-7b"])
+def test_server_matches_reference_server(arch):
+    jcfg = jreduced(jget_config(arch), n_layers=2)
     jrun = JRunConfig(model=jcfg, shape=JShape("s", 64, 4, "decode"),
                       remat="none")
     jparams = JModel(jrun).init_params(jax.random.PRNGKey(0))
-    cfg = reduced(get_config("tinyllama-1.1b"), n_layers=2)
+    cfg = reduced(get_config(arch), n_layers=2)
     run = RunConfig(model=cfg, shape=ShapeProfile("s", 64, 4, "decode"),
                     remat="none")
     params = from_reference(jax.tree.map(np.asarray, jparams))
