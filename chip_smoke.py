@@ -13,15 +13,20 @@ each phase's wall time printed:
      ptxas's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card, over
      the reference's test sweep, a ragged case and the serve paths'
-     shapes, with times for the kernel, the plain version, one PyTorch
-     library call computing the same function (where there is one), and
-     the bound (least time the card could take);
+     shapes, each on the body the wrapper picks, with times for the
+     kernel, the plain version, one PyTorch library call computing the
+     same function (where there is one), and the bound (least time the
+     card could take); flash attention's mma.sync body forced on the serve
+     shape beside its tma body; both kernels at the serve profile's full
+     2048-token prompt; each timed kernel's device time from
+     torch.profiler beside its CUDA-event time, and the host us per
+     wrapper call;
   3. serve tinyllama-1.1b at its full config (22 layers, d_model 2048,
      bf16, random weights from a seed) through
      ``repro_torch.launch.serve.Server`` and the port's EmeraldRuntime,
      with the cloud tier on the card: 8 requests of 384-512 prompt tokens,
-     32 new tokens each. Kernel launch counts are reset just before and
-     read just after;
+     32 new tokens each. Kernel launch counts (flash attention's also by
+     body) are reset just before and read just after;
   4. run the same model at 2 layers, full width, on the card (bf16, kernel)
      and on the CPU (f32, plain version) from one param tree, and compare
      the logits;
@@ -61,6 +66,7 @@ H_TOL = 2e-4            # the selective scan's h_last (tests/test_kernels.py)
 # relative error of a few 1e-3 is expected; 5e-2 fails only a real fault
 LOGITS_REL_TOL = 5e-2
 ARGMAX_AGREE_MIN = 0.75
+LONG_PROMPT = 2048      # the serve profile's full prompt (ShapeProfile)
 
 
 class CheckFailed(RuntimeError):
@@ -95,7 +101,54 @@ def cuda_ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
+def host_us(fn, iters=200):
+    """Host time of one call: the wrapper's checks, allocation and launch,
+    without waiting for the card (the launches queue up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def profiled_ms(fn, pattern=None, iters=10):
+    """Device time per call from torch.profiler's key_averages(): of the
+    kernels whose name holds ``pattern``, or of every kernel the call
+    launches when ``pattern`` is None. None where the trace holds no device
+    time for them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if pattern is None:
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+        elif pattern not in e.key:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        total += us
+    return total / iters / 1e3 if total > 0 else None
+
+
 # ------------------------------------------------------------ flash attention
+FA_KERNEL_NAMES = {"tma": "fa_fwd_tma", "mma": "fa_fwd_mma",
+                   "f32": "fa_fwd_f32"}
+
+
 def fa_bound_ms(B, Sq, Skv, H, KV, dq, dv, dtype, causal, kv_len):
     """Least time for the call: bytes of q, k, v read once and o written
     once over HBM bandwidth, or the visible (q, k) pairs' two products
@@ -111,9 +164,12 @@ def fa_bound_ms(B, Sq, Skv, H, KV, dq, dv, dtype, causal, kv_len):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None):
+def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
+            body=None, profiled=False):
     """Kernel vs plain version on one seeded input, both timed; returns
-    the record."""
+    the record. ``body`` forces a body (default: the one ``_body`` picks);
+    ``profiled`` adds the profiler's device time and the host us per
+    wrapper call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -123,30 +179,43 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None):
     k = torch.randn((B, S, KV, dq), generator=g).to("cuda", dt)
     v = torch.randn((B, S, KV, dv), generator=g).to("cuda", dt)
     scale = dq ** -0.5
-    out = kernel.flash_attention_fwd(q, k, v, scale=scale, causal=causal,
-                                     kv_len=kv_len)
+    body = body or kernel._body(q, k, v)
+
+    def run():
+        return kernel._flash_attention_fwd(q, k, v, scale=scale,
+                                           causal=causal, kv_len=kv_len,
+                                           body=body)
+    before = kernel.launches_by_body[body]
+    out = run()
     want = ref.attention_ref(q, k, v, scale=scale, causal=causal,
                              kv_len=kv_len)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     tol = TOL[dtype_name]
-    good = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+    good = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
+                and kernel.launches_by_body[body] == before + 1)
     rec = {"shape": [B, S, H, KV, dq, dv], "dtype": dtype_name,
-           "causal": causal, "kv_len": kv_len, "max_abs_err": err,
-           "tol": tol, "ok": good}
-    rec["ms"] = cuda_ms(lambda: kernel.flash_attention_fwd(
-        q, k, v, scale=scale, causal=causal, kv_len=kv_len))
+           "causal": causal, "kv_len": kv_len, "body": body,
+           "max_abs_err": err, "tol": tol, "ok": good}
+    rec["ms"] = cuda_ms(run)
     rec["plain_ms"] = cuda_ms(lambda: ref.attention_ref(
         q, k, v, scale=scale, causal=causal, kv_len=kv_len))
     rec["library_ms"] = None
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if kv_len is None and dq == dv:
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale,
                 enable_gqa=KV != H))
     rec["bound_ms"], rec["bound_by"] = fa_bound_ms(
         B, S, S, H, KV, dq, dv, dtype_name, causal, kv_len)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    if profiled:
+        rec["profiler_ms"] = profiled_ms(run, FA_KERNEL_NAMES[body])
+        rec["library_profiler_ms"] = profiled_ms(lambda: (
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                           scale=scale, enable_gqa=KV != H)))
+        rec["host_us_per_call"] = host_us(run)
     return rec
 
 
@@ -173,16 +242,30 @@ def phase_flash(serve_shape):
         rec = fa_case(**c)
         recs.append(rec)
         print("  flash_attention_fwd " + json.dumps(rec), flush=True)
-    slice_rec = fa_case(B=B, S=S, H=H, KV=KV, dq=D, dv=D,
-                        dtype_name="bfloat16", causal=True)
+    serve = dict(B=B, S=S, H=H, KV=KV, dq=D, dv=D, dtype_name="bfloat16",
+                 causal=True, profiled=True)
+    slice_rec = fa_case(**serve)
     print("  flash_attention_fwd (serve shape) " + json.dumps(slice_rec),
           flush=True)
+    mma_rec = fa_case(**serve, body="mma")
+    print("  flash_attention_fwd (serve shape, mma.sync body) "
+          + json.dumps(mma_rec), flush=True)
+    long_rec = fa_case(**dict(serve, S=LONG_PROMPT))
+    print("  flash_attention_fwd (full prompt) " + json.dumps(long_rec),
+          flush=True)
     torch.cuda.synchronize()
-    bad = [r for r in recs + [slice_rec] if not r["ok"]]
+    every = recs + [slice_rec, mma_rec, long_rec]
+    bad = [r for r in every if not r["ok"]]
     check(not bad, f"flash_attention_fwd agrees with attention_ref on "
-          f"{len(recs) + 1} cases (f32 2e-5, bf16 2e-2)"
+          f"{len(every)} cases (f32 2e-5, bf16 2e-2)"
           + (f"; failing: {bad}" if bad else ""))
-    return slice_rec
+    check(slice_rec["body"] == long_rec["body"] == "tma"
+          and all(r["body"] == ("f32" if r["dtype"] == "float32" else "tma")
+                  for r in recs),
+          "every bf16 case ran the tma body, every f32 case the f32 body")
+    slice_rec["mma_body"] = {k: mma_rec[k] for k in (
+        "ms", "profiler_ms", "host_us_per_call", "max_abs_err")}
+    return slice_rec, long_rec
 
 
 # ------------------------------------------------------------- selective scan
@@ -236,13 +319,18 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
     rec = {"shape": [Bt, L, di, N], "dtype": dtype_name,
            "strided_bc": bool(proj_width), "max_abs_err": err,
            "h_max_abs_err": h_err, "tol": tol, "h_tol": H_TOL, "ok": good}
-    if timed:
-        rec["ms"] = cuda_ms(lambda: kernel.selective_scan_fwd(*args))
-        rec["plain_ms"] = cuda_ms(lambda: ref.selective_scan_ref(*args),
-                                  iters=5)
     # no single PyTorch call computes a selective scan
     rec["library_ms"] = None
     rec["bound_ms"], rec["bound_by"] = ss_bound_ms(Bt, L, di, N, dtype_name)
+    if timed:
+        def run():
+            return kernel.selective_scan_fwd(*args)
+        rec["ms"] = cuda_ms(run)
+        rec["plain_ms"] = cuda_ms(lambda: ref.selective_scan_ref(*args),
+                                  iters=5)
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        rec["profiler_ms"] = profiled_ms(run, "ss_fwd_kernel")
+        rec["host_us_per_call"] = host_us(run)
     return rec
 
 
@@ -261,12 +349,17 @@ def phase_scan(serve_shape, dt_rank):
                         timed=True)
     print("  selective_scan_fwd (serve shape) " + json.dumps(slice_rec),
           flush=True)
+    long_rec = ss_case(Bt, LONG_PROMPT, di, N, "bfloat16",
+                       proj_width=dt_rank + 2 * N, timed=True)
+    print("  selective_scan_fwd (full prompt) " + json.dumps(long_rec),
+          flush=True)
     torch.cuda.synchronize()
-    bad = [r for r in recs + [slice_rec] if not r["ok"]]
+    every = recs + [slice_rec, long_rec]
+    bad = [r for r in every if not r["ok"]]
     check(not bad, f"selective_scan_fwd agrees with selective_scan_ref on "
-          f"{len(recs) + 1} cases (y f32 2e-5, bf16 2e-2; h_last 2e-4)"
+          f"{len(every)} cases (y f32 2e-5, bf16 2e-2; h_last 2e-4)"
           + (f"; failing: {bad}" if bad else ""))
-    return slice_rec
+    return slice_rec, long_rec
 
 
 def phase_kernels(fa_shape, ss_shape, dt_rank):
@@ -375,9 +468,12 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
     for r in reqs:
         srv.submit(r)
     counters = kernel_counters()
+    fa_bodies = counters["flash_attention_fwd"].launches_by_body
     torch.cuda.reset_peak_memory_stats()
     for mod in counters.values():
         mod.launches = 0
+    for body in fa_bodies:
+        fa_bodies[body] = 0
     t0 = time.perf_counter()
     try:
         done = []
@@ -385,6 +481,7 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
             done += srv.step_batch()
         serve_s = time.perf_counter() - t0
         launches = {n: mod.launches for n, mod in counters.items()}
+        by_body = dict(fa_bodies)
         peak = torch.cuda.max_memory_allocated()
         rep = srv.transfer_report()
         spans = srv.runtime.tracer.spans()
@@ -416,6 +513,10 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
         check(n == want, f"{name} launches {n} = {want}"
               + (f" ({cfg.n_layers} layers x {srv.stats['prefills']} "
                  f"prefills)" if want else " (not on this path)"))
+    want_tma = launches["flash_attention_fwd"]
+    check(by_body == {"f32": 0, "mma": 0, "tma": want_tma},
+          f"flash_attention_fwd launches by body {by_body}: every one on the "
+          f"tma body")
     check(rep["decode_offloads"] == srv.stats["decode_calls"],
           f"every decode was an offload ({rep['decode_offloads']})")
     # code-only: a decode ships neither params nor cache, only the tokens
@@ -454,6 +555,7 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
             x.nbytes for x in tree_leaves(params)),
         "cache_hash_s": cache_hash_s, "cache_bytes": cache_bytes,
         "peak_device_bytes": peak, "launches": launches,
+        "flash_launches_by_body": by_body,
     }
     print("  serve " + json.dumps(stats), flush=True)
     del srv, params, cache
@@ -554,8 +656,8 @@ def main() -> int:
     mreqs = make_requests(mcfg, n=4, seed=1)
     ss_shape = (mrun.shape.global_batch, packed_len(mrun, mreqs),
                 mcfg.d_inner, mcfg.ssm_state)
-    fa, ss = timed("phase 2", phase_kernels, fa_shape, ss_shape,
-                   mcfg.dt_rank_)
+    (fa, fa_long), (ss, ss_long) = timed("phase 2", phase_kernels, fa_shape,
+                                         ss_shape, mcfg.dt_rank_)
 
     check(cfg.n_layers == 22 and cfg.d_model == 2048
           and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
@@ -568,23 +670,32 @@ def main() -> int:
                         "selective_scan_fwd")
     timed("phase 4b", phase_model_parity, "4b", mcfg)
 
-    def entry(name, source, replaces, launches, rec):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape", "dtype", "profiler_ms",
+            "host_us_per_call")
+
+    def entry(name, source, replaces, launches, rec, long_rec, body):
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "shape", "dtype")}}
+                "replaces": replaces, "launches": launches, "body": body,
+                **{k: rec[k] for k in keys},
+                "library_profiler_ms": rec.get("library_profiler_ms"),
+                "long_shape": {
+                    **{k: long_rec[k] for k in keys + ("share_of_bound",)},
+                    "library_profiler_ms": long_rec.get(
+                        "library_profiler_ms")}}
 
     record = {"kernels": [
         entry("flash_attention_fwd",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd.cu",
               "src/repro/kernels/flash_attention/kernel.py:71",
-              fa_launches["flash_attention_fwd"], fa),
+              fa_launches["flash_attention_fwd"], fa, fa_long, fa["body"]),
         entry("selective_scan_fwd",
               "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
               "src/repro/kernels/mamba_scan/kernel.py:54",
-              ss_launches["selective_scan_fwd"], ss)]}
+              ss_launches["selective_scan_fwd"], ss, ss_long,
+              "ss_fwd_kernel (bf16: state columns split over 2 lanes)")]}
+    record["kernels"][0]["mma_body"] = fa["mma_body"]
     print(f"  [total: {time.perf_counter() - t_start:.3f} s wall]",
           flush=True)
     print(card)

@@ -17,25 +17,38 @@
 //
 // What bounds it: at the serve path's prefill shape (B=4, H=32, KV=4,
 // S~400-512, d=64, bf16, causal) q, k, v and o are ~15 MB and the visible
-// (q, k) pairs' two products ~3 GFLOP: at the card's peaks that is ~4.5 us
-// of HBM traffic against ~2.8 us of bf16 tensor-core work, so the bound is
-// bytes, and both are microseconds.
+// (q, k) pairs' two products ~3 GFLOP: ~4.5 us of HBM traffic against
+// ~2.8 us of bf16 tensor-core work, so the bound is bytes. At a 2048-token
+// prompt the products (69 GFLOP, ~70 us) bound it.
 //
-// The design is deliberately simple so it is easy to hold against the plain
-// version: one block per (64-row q tile, q head, batch), looping over
-// 64-key K/V tiles staged in shared memory, and stopping at the causal
-// diagonal and at kv_len. Two bodies:
-//   * bf16 — both products on the tensor cores with mma.sync (bf16 inputs,
-//     f32 accumulate), four warps of 16 q rows, the softmax state in the
-//     mma fragments' registers;
+// Three bodies; the wrapper (kernel.py `_body`) picks one from the shapes,
+// strides and dtype alone:
+//   * tma  — bf16 where TMA can address q, k, v and o (16-B aligned bases,
+//     strides multiples of 16 B, head dims multiples of 8 up to 128). One
+//     block per (128-row q tile, q head, batch): a producer warp loads the
+//     q tile once and streams 64-key K/V tiles into a two-stage ring by TMA
+//     (128-B swizzle, one 64-element box per head-dim slice, zero fill
+//     past the sequence and head-dim edges), completing on mbarriers; two
+//     consumer warpgroups of 64 q rows run wgmma: S = Q K^T with both
+//     operands in shared memory (K-major), O += P V with P from registers
+//     (rounded to bf16, as the reference rounds p to v's dtype) and V read
+//     in place as an MN-major operand. Softmax state stays in f32
+//     registers, scale and log2 e folded into one exp2; causal tiles past
+//     the block's diagonal are never loaded, a warpgroup skips those past
+//     its own rows' diagonal, and only tiles that cross it or kv_len are
+//     masked. The output goes through shared memory (swizzled) and a TMA
+//     store.
+//   * mma  — bf16 for what TMA cannot address (odd strides, head dims
+//     not a multiple of 8): mma.sync m16n8k16, four warps of 16 q rows,
+//     64-key tiles staged by plain loads.
 //   * f32  — the products on the CUDA cores (tensor-core TF32 would miss
 //     the reference's 2e-5 tolerance), 256 threads with a 4x4 register
 //     micro-tile for the scores and a quad of threads per output row.
-// Global loads are plain element loads with no copy/compute overlap;
-// wgmma, TMA and warp specialisation are the next step, in a later change.
 
+#include <cuda.h>          // CUtensorMap; the encoder is found at run time
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -421,31 +434,563 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// tma: bf16 on TMA, mbarriers and wgmma.
+// ---------------------------------------------------------------------------
+constexpr int TQ = 128;            // q rows per block: two warpgroups of 64
+constexpr int TMA_THREADS = 288;   // two consumer warpgroups + a producer warp
+constexpr int ROWB = 128;          // bytes per shared-memory row: one box of
+                                   // 64 bf16, the 128-B swizzle's span
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tile choices, overridable at build time for scripts/torch_kernel_variants.py.
+// 64 keys per stage keep the d=64 body at ~95 registers, so two blocks
+// (four consumer warpgroups) share an SM; 128 keys take ~159 and one block,
+// and ran slower on an H100 at both the serve shape and S=2048 (PERF.md).
+#ifndef FA_TMA_BN_SMALL_D
+#define FA_TMA_BN_SMALL_D 64       // keys per stage for head dims <= 64
+#endif
+#ifndef FA_TMA_STAGES
+#define FA_TMA_STAGES 2            // K/V ring stages
+#endif
+
+constexpr int NST = FA_TMA_STAGES;
+
+// Shared-memory plan of one block, in bytes from a 1024-B aligned base (the
+// swizzle repeats every 8 rows of 128 B). The q region holds the q tile,
+// one 128-row box per 64-wide head-dim slice, and afterwards each
+// warpgroup's rows of the output.
+template <int DQ, int DV>
+struct TmaPlan {
+  static constexpr int BN = (DQ == 64 && DV == 64) ? FA_TMA_BN_SMALL_D : 64;
+  static constexpr int NQB = DQ / 64, NVB = DV / 64;
+  static constexpr int QBOX = TQ * ROWB;
+  static constexpr int QREG = (NQB > NVB ? NQB : NVB) * QBOX;
+  static constexpr int KBOX = BN * ROWB;
+  static constexpr int KSTAGE = NQB * KBOX, VSTAGE = NVB * KBOX;
+  static constexpr int OFF_K = QREG;
+  static constexpr int OFF_V = OFF_K + NST * KSTAGE;
+  static constexpr int OFF_BAR = OFF_V + NST * VSTAGE;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 3 * NST) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed. A wait that
+// never ends (seconds of polls) traps, so a fault shows as a launch error
+// and not as a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-B swizzled tile: 8-row groups
+// 1024 B apart (SBO); LBO is the distance between 64-element slices of an
+// MN-major operand (unused, 16 B, for K-major ones).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16)
+       | (static_cast<uint64_t>(1024 >> 4) << 32)
+       | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// Returns once every committed wgmma group has completed.
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching registers that an in-flight wgmma
+// reads or writes: called after the wait.
+template <int R>
+__device__ __forceinline__ void reg_fence(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int R>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
+}
+
+// m64nNk16 bf16 -> f32, N = 64 or 128. wgmma_ss: A and B from shared
+// memory, both K-major. wgmma_rs: A from registers, B from shared memory
+// MN-major (the transpose flag, which 16-bit types allow).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int DQ, int DV>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+fa_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap to,
+                  int G, int Sq, float scale_log2, int causal, int kv_len) {
+  using P = TmaPlan<DQ, DV>;
+  constexpr int BN = P::BN;
+  extern __shared__ unsigned char tma_smem[];
+  const uint32_t raw = smem_u32(tma_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* const gbase = tma_smem + (base - raw);
+  const uint32_t q_s = base, k_s = base + P::OFF_K, v_s = base + P::OFF_V;
+  // barriers: q_full, then k_full[NST], v_full[NST], empty[NST]
+  const uint32_t q_full = base + P::OFF_BAR;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * NST;
+  const uint32_t empty = v_full + 8 * NST;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * TQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // keys this tile needs: up to kv_len, and with causal up to its last row
+  const int kv_end = causal ? min(kv_len, q0 + TQ) : kv_len;
+  const int ntiles = (kv_end + BN - 1) / BN;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 256);   // every consumer thread arrives
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // producer: one thread issues every copy
+    if (lane == 0) {
+      const int kvh = h / G;
+      mbar_expect_tx(q_full, P::NQB * P::QBOX);
+      for (int i = 0; i < P::NQB; ++i)
+        tma_load(q_s + i * P::QBOX, &tq, q_full, 64 * i, h, q0, b);
+      for (int it = 0; it < ntiles; ++it) {
+        const int st = it % NST;
+        const uint32_t par = (it / NST) & 1;
+        mbar_wait(empty + 8 * st, par ^ 1);   // passes at once in round 0
+        mbar_expect_tx(k_full + 8 * st, P::KSTAGE);
+        for (int i = 0; i < P::NQB; ++i)
+          tma_load(k_s + st * P::KSTAGE + i * P::KBOX, &tk, k_full + 8 * st,
+                   64 * i, kvh, it * BN, b);
+        mbar_expect_tx(v_full + 8 * st, P::VSTAGE);
+        for (int i = 0; i < P::NVB; ++i)
+          tma_load(v_s + st * P::VSTAGE + i * P::KBOX, &tv, v_full + 8 * st,
+                   64 * i, kvh, it * BN, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns q rows rbase .. rbase + 63; each thread
+  // holds rows row0 and row1 of the wgmma fragment layout
+  const int wg = warp / 4, wq = warp % 4, g = lane / 4, t = lane % 4;
+  const int rbase = q0 + 64 * wg;
+  const int row0 = rbase + 16 * wq + g, row1 = row0 + 8;
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  float s[BN / 2];          // scores of one tile, then their exponentials
+  uint32_t pa[BN / 16][4];  // P as the A operand of O += P V
+
+  // S = Q K^T of tile `it` into s, issued (not waited for)
+  auto issue_s = [&](int it) {
+    const int st = it % NST;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) s[i] = 0.f;
+    mbar_wait(k_full + 8 * st, (it / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ / 16; ++kk) {
+      const uint32_t qa = q_s + (kk / 4) * P::QBOX + wg * 64 * ROWB
+                          + (kk % 4) * 32;
+      const uint32_t ka = k_s + st * P::KSTAGE + (kk / 4) * P::KBOX
+                          + (kk % 4) * 32;
+      wgmma_ss(s, sw128_desc(qa, 16), sw128_desc(ka, 16), kk > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+  // O += P V of tile `it` from pa, issued (not waited for)
+  auto issue_pv = [&](int it) {
+    const int st = it % NST;
+    mbar_wait(v_full + 8 * st, (it / NST) & 1);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t va = v_s + st * P::VSTAGE + kk * 16 * ROWB;
+      wgmma_rs(o, pa[kk], sw128_desc(va, P::KBOX), 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  };
+  // online softmax of tile `it`'s scores in s: masks, exponentials in
+  // place, running max and sum; returns the rescale factors of O
+  auto softmax = [&](int it, float& al0, float& al1) {
+    const int k0 = it * BN;
+    // scale into the exp2 domain; mask only tiles that cross kv_len or
+    // this warpgroup's diagonal
+    const bool edge = k0 + BN > kv_len || (causal && k0 + BN - 1 > rbase);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * scale_log2;
+        if (edge) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = e < 2 ? row0 : row1;
+          if (kpos >= kv_len || (causal && kpos > qpos)) x = NEG_INF;
+        }
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x);
+        else mx1 = fmaxf(mx1, x);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    al0 = fast_exp2(m0 - mx0);
+    al1 = fast_exp2(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;   // this thread's share; the quad's
+                                    // shares are added once, at the end
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      s[4 * j + 0] = fast_exp2(s[4 * j + 0] - mx0);
+      s[4 * j + 1] = fast_exp2(s[4 * j + 1] - mx0);
+      s[4 * j + 2] = fast_exp2(s[4 * j + 2] - mx1);
+      s[4 * j + 3] = fast_exp2(s[4 * j + 3] - mx1);
+      sum0 += s[4 * j + 0] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+    l0 = l0 * al0 + sum0;
+    l1 = l1 * al1 + sum1;
+  };
+  auto rescale = [&](float al0, float al1) {
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) {
+      o[4 * j + 0] *= al0; o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1; o[4 * j + 3] *= al1;
+    }
+  };
+  // P rounded to bf16: the accumulator layout of two adjacent 8-key
+  // column tiles is the A fragment of one 16-key step
+  auto pack_p = [&] {
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  // tiles this warpgroup computes: none if its rows lie past Sq, and with
+  // causal none wholly above its own diagonal. It still releases the
+  // others, which the other warpgroup reads, once they have landed: an
+  // early arrival would count towards the stage's previous round.
+  const int wg_end = rbase >= Sq ? 0 : causal ? min(kv_len, rbase + 64)
+                                              : kv_len;
+  const int wg_tiles = min(ntiles, (wg_end + BN - 1) / BN);
+  mbar_wait(q_full, 0);
+  float al0, al1;
+  for (int it = 0; it < ntiles; ++it) {
+    if (it >= wg_tiles) {
+      const int st = it % NST;
+      mbar_wait(k_full + 8 * st, (it / NST) & 1);
+      mbar_wait(v_full + 8 * st, (it / NST) & 1);
+      mbar_arrive(empty + 8 * st);
+      continue;
+    }
+    issue_s(it);
+    wg_wait_all();
+    reg_fence(s);
+    softmax(it, al0, al1);
+    rescale(al0, al1);
+    pack_p();
+    issue_pv(it);
+    wg_wait_all();
+    reg_fence(o);
+    reg_fence(pa);
+    mbar_arrive(empty + 8 * (it % NST));
+  }
+
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // stage this warpgroup's 64 output rows over its own q rows (its last
+  // wgmma has completed), in the swizzled layout the O map stores from
+  unsigned char* const osm = gbase + wg * 64 * ROWB;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * wq + g + 8 * half;
+      const int off = (j / 8) * P::QBOX + r * ROWB + (((j % 8) ^ g) * 16)
+                      + 4 * t;
+      const float inv = half ? inv1 : inv0;
+      *reinterpret_cast<__nv_bfloat162*>(osm + off) = __floats2bfloat162_rn(
+          o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
+  if (tid % 128 == 0 && rbase < Sq) {
+    for (int i = 0; i < P::NVB; ++i)
+      tma_store(&to, base + i * P::QBOX + wg * 64 * ROWB, 64 * i, h, rbase, b);
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// cuTensorMapEncodeTiled is a driver-API call: found in the driver library
+// the process has already loaded, so the build needs no link flag.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    return h ? reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"))
+             : nullptr;
+  }();
+  return fn;
+}
+
+// A (d, heads, seq, batch) map of a bf16 tensor with the given element
+// strides; boxes of 64 head-dim elements x `rows` positions of one head.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
+              int batch, Strides s, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.s * 2,
+                                 (cuuint64_t)s.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DQ, int DV>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
+                       int B, int H, int KV, int Sq, int Skv, int dq, int dv,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       float scale, int causal, int kv_len,
+                       cudaStream_t stream) {
+  using P = TmaPlan<DQ, DV>;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, dq, H, Sq, B, sq, TQ) ||
+      !make_map(&tk, k, dq, KV, Skv, B, sk, P::BN) ||
+      !make_map(&tv, v, dv, KV, Skv, B, sv, P::BN) ||
+      !make_map(&to, o, dv, H, Sq, B, so, 64))
+    return cudaErrorInvalidValue;
+  static bool configured = false;   // the attribute is set once per body
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fa_fwd_tma_kernel<DQ, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        P::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  dim3 grid((Sq + TQ - 1) / TQ, H, B);
+  fa_fwd_tma_kernel<DQ, DV><<<grid, TMA_THREADS, P::SMEM, stream>>>(
+      tq, tk, tv, to, H / KV, Sq, scale * LOG2E, causal, kv_len);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// CUDA error code of the launch (0 on success).
-extern "C" int fa_fwd(int dtype, const void* q, const void* k, const void* v,
+// body: 0 = f32, 1 = mma (bf16), 2 = tma (bf16); the caller picks it (see
+// the note at the top). Strides are in elements. Returns the CUDA error
+// code of the launch (0 on success; cudaErrorInvalidValue if a tensor map
+// cannot be encoded).
+extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
                       void* o, int B, int H, int KV, int Sq, int Skv, int dq,
                       int dv, long long qb, long long qs, long long qh,
                       long long kb, long long ks, long long kh, long long vb,
                       long long vs, long long vh, long long ob, long long os,
                       long long oh, float scale, int causal, int kv_len,
                       void* stream) {
-  if (dq < 1 || dv < 1 || dq > MAX_D || dv > MAX_D || KV < 1 || H % KV != 0)
+  if (dq < 1 || dv < 1 || dq > MAX_D || dv > MAX_D || KV < 1 || H % KV != 0
+      || body < 0 || body > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
   cudaStream_t st = (cudaStream_t)stream;
+#define FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, dq, dv, sq, sk, sv, so, scale, \
+                causal, kv_len, st
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_f32(q, k, v, o, B, H, KV, Sq, Skv, dq, dv, sq, sk, sv, so,
-                     scale, causal, kv_len, st);
-  else if ((dq + 15) / 16 * 16 <= 64 && (dv + 7) / 8 * 8 <= 64)
-    err = launch_mma<64>(q, k, v, o, B, H, KV, Sq, Skv, dq, dv, sq, sk, sv,
-                         so, scale, causal, kv_len, st);
+  if (body == 0)
+    err = launch_f32(FA_ARGS);
+  else if (body == 1)
+    err = (dq + 15) / 16 * 16 <= 64 && (dv + 7) / 8 * 8 <= 64
+              ? launch_mma<64>(FA_ARGS) : launch_mma<128>(FA_ARGS);
+  else if (dq <= 64)
+    err = dv <= 64 ? launch_tma<64, 64>(FA_ARGS) : launch_tma<64, 128>(FA_ARGS);
   else
-    err = launch_mma<128>(q, k, v, o, B, H, KV, Sq, Skv, dq, dv, sq, sk, sv,
-                          so, scale, causal, kv_len, st);
+    err = dv <= 64 ? launch_tma<128, 64>(FA_ARGS)
+                   : launch_tma<128, 128>(FA_ARGS);
+#undef FA_ARGS
   return (int)err;
 }

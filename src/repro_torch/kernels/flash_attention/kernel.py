@@ -6,8 +6,13 @@ It is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C entry point (``kernels/_build.py``, at first use) and loaded with
 ``ctypes``. Importing this module needs neither ``nvcc`` nor a card.
 
-``launches`` counts kernel launches: it is incremented where the kernel is
-launched and nowhere else.
+The source holds three bodies (see its header note). ``_body`` picks one
+from the dtype, shapes, strides and alignment alone, never from a failed
+launch: ``"tma"`` (TMA loads, wgmma) for bf16 that TMA can address,
+``"mma"`` (mma.sync) for the rest of bf16, ``"f32"`` for float32.
+
+``launches`` counts kernel launches and ``launches_by_body`` splits them by
+body: both are incremented where the kernel is launched and nowhere else.
 """
 from __future__ import annotations
 
@@ -21,9 +26,12 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
 MAX_HEAD_DIM = 128
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_BODIES = {"f32": 0, "mma": 1, "tma": 2}
+_TMA_ALIGN = 8                    # elements: TMA takes 16-B strides and bases
 
 launches = 0
+launches_by_body = dict.fromkeys(_BODIES, 0)
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -35,17 +43,48 @@ def build() -> Path:
 
 def _load():
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.fa_fwd
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                           + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                fn = lib.fa_fwd
+                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                               + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
+                               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
+
+
+def _strides(t):
+    """(batch, seq, head) element strides; a size-1 dim gets the stride a
+    contiguous tensor would give it, as its stride is never stepped."""
+    (nb, ns, nh, nd), (sb, ss, sh, _) = t.shape, t.stride()
+    sh = sh if nh > 1 else nd
+    ss = ss if ns > 1 else sh * nh
+    return (sb if nb > 1 else ss * ns), ss, sh
+
+
+def _tma_addressable(t, strides) -> bool:
+    return t.data_ptr() % 16 == 0 and not any(s % _TMA_ALIGN
+                                              for s in strides)
+
+
+def _pick(q, k, v, strides) -> str:
+    if q.dtype == torch.float32:
+        return "f32"
+    ok = (q.shape[3] % _TMA_ALIGN == 0 and v.shape[3] % _TMA_ALIGN == 0
+          and all(map(_tma_addressable, (q, k, v), strides)))
+    return "tma" if ok else "mma"
+
+
+def _body(q, k, v) -> str:
+    """The body that runs these inputs: ``"f32"`` for float32; for bf16
+    ``"tma"`` where TMA can address q, k, v and the output (bases 16-B
+    aligned, strides multiples of 16 B, head dims multiples of 8), else
+    ``"mma"``. Reads shapes, strides and pointers only."""
+    return _pick(q, k, v, [_strides(t) for t in (q, k, v)])
 
 
 def _check(q, k, v, kv_len):
@@ -80,23 +119,38 @@ def flash_attention_fwd(q, k, v, *, scale: float, causal: bool = True,
                         kv_len: int | None = None):
     """q (B,Sq,H,dq), k (B,Skv,KV,dq), v (B,Skv,KV,dv) -> (B,Sq,H,dv).
 
-    Launches the Hopper kernel on the current stream; raises if the
-    arguments do not fit it, if the build fails or if the launch is
-    refused. Does not synchronise.
+    Launches the Hopper kernel's body for these inputs (``_body``) on the
+    current stream; raises if the arguments do not fit it, if the build
+    fails or if the launch is refused. Does not synchronise.
     """
+    return _flash_attention_fwd(q, k, v, scale=scale, causal=causal,
+                                kv_len=kv_len)
+
+
+def _flash_attention_fwd(q, k, v, *, scale, causal=True, kv_len=None,
+                         body=None):
+    """``flash_attention_fwd`` with the body named: ``body="mma"`` runs the
+    mma.sync body on inputs the tma body would take, so both bf16 bodies
+    can be checked and timed side by side."""
     global launches
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     B, Sq, H, dq, Skv, KV, dv = _check(q, k, v, kv_len)
+    strides = [_strides(t) for t in (q, k, v)]
+    fits = _pick(q, k, v, strides)
+    body = fits if body is None else body
+    if (body == "tma" and fits != "tma") or (body == "f32") != (fits == "f32"):
+        raise ValueError(f"the {body} body cannot take these inputs")
     lib = _load()
     o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.fa_fwd(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+    err = lib.fa_fwd(_BODIES[body], q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), B, H, KV, Sq, Skv, dq, dv,
-                     *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                     *strides[0], *strides[1], *strides[2],
                      *o.stride()[:3], float(scale), int(bool(causal)),
                      kv_len, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention_fwd ({body} body) launch "
+                           f"failed: CUDA error {err}")
     launches += 1
+    launches_by_body[body] += 1
     return o

@@ -15,24 +15,35 @@
 // h0 and h_last (Bt,di,N) and y (Bt,L,di) are contiguous.
 //
 // What bounds it: every (t, c, n) needs one exponential, Bt*L*di*N of them
-// (216 M at the serve path's prefill, Bt=4, L~412, di=8192, N=16), which at
-// the special-function units' 16 per clock per SM is ~52 us on an H100;
-// the bytes (x, dt and y dominate, ~113 MB) take ~34 us at 3.35 TB/s. So the
-// bound is the exponentials, with the bytes close behind.
+// (201 M at the serve path's prefill, Bt=4, L=384, di=8192, N=16), which at
+// the special-function units' 16 per clock per SM is ~48 us on an H100;
+// the bytes (x, dt and y dominate, ~106 MB) take ~32 us at 3.35 TB/s. So
+// the bound is the exponentials, with the bytes close behind.
 //
-// Design, simple first: the TPU's sequential chunk grid axis with its state
-// in VMEM scratch becomes a loop over time inside each block. Grid
-// (ceil(di/128), Bt), one channel per thread; the thread keeps its N-wide
-// state and its row of A (pre-scaled by log2 e, so each exponential is one
-// exp2) in registers, N a template parameter. For each tile of 32 timesteps
-// the block first stages x and dt (coalesced across neighbouring channels)
-// and B_t, C_t (read by every channel of the block) into shared memory as
-// f32, then runs the 32 dependent steps from there, writing y coalesced.
-// Each step's N exponentials are independent, which is the only parallelism
-// inside a thread; across the card there are only Bt*di threads (256 blocks
-// of 128 at the serve shape), and the tile loads are not overlapped with
-// compute. Splitting N or time across threads and cp.async/TMA staging are
-// the next steps, in a later change.
+// Design. The TPU's sequential chunk grid axis with its state in VMEM
+// scratch becomes a loop over time inside each block, and the state's N
+// columns are split across P neighbouring lanes (P = 2 for bf16, 4 for
+// f32): a block of 128 threads owns 128/P channels of one batch row, each
+// lane N/P of a channel's state columns and their rows of A (pre-scaled by
+// log2 e, so each exponential is one ex2), in f32 registers. Each step's y
+// is a tree: the lane's N/P products summed pairwise, then xor-shuffles
+// across the P lanes. Every exponential of a step is independent of the
+// state, and the 32-step tile loop is unrolled, so the exponentials run
+// ahead of the dependent multiply-add chain. More lanes per channel give
+// more resident warps but repeat each step's fixed work (the x and dt
+// reads, the shuffles, the y write) on every lane: on an H100, P = 2
+// (16 warps per SM at the serve shape) beat P = 4 (31) and P = 8 (62),
+// see scripts/torch_kernel_variants.py and PERF.md.
+//
+// Time tiles of 32 steps of x, dt, B and C are staged in shared memory
+// with cp.async, double-buffered: the next tile's copies are in flight
+// while the current one is computed. Where every base is 16-B aligned and
+// every stride is a multiple of 16 B (the serve path: B and C are 32-B
+// rows at offsets 512 and 544 B of a 576-B x_proj row), each copy moves
+// 16 B; otherwise (odd N, misaligned slices) one element at a time, with
+// plain loads. Rows past L are zero-filled: dt = 0 and x = 0 leave the
+// state unchanged, so the recurrence needs no mask. B and C are converted
+// to f32 once per tile; y is staged and written back one tile at a time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,10 +51,16 @@
 
 namespace {
 
-constexpr int BLOCK = 128;      // channels per block, one per thread
+constexpr int THREADS = 128;
 constexpr int TT = 32;          // timesteps per staged tile
 constexpr int MAX_N = 16;       // state width limit
 constexpr float LOG2E = 1.4426950408889634f;
+#ifndef SS_PARTS
+#define SS_PARTS 2              // lanes sharing one channel's state (bf16)
+#endif
+#ifndef SS_MIN_BLOCKS
+#define SS_MIN_BLOCKS 4         // resident blocks the registers must allow
+#endif
 
 struct Args {
   const void* x;
@@ -63,96 +80,221 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <int N, typename T>
-__global__ void __launch_bounds__(BLOCK) ss_fwd_kernel(const Args a) {
-  __shared__ float x_s[TT][BLOCK];
-  __shared__ float dt_s[TT][BLOCK];
-  __shared__ __align__(16) float B_s[TT][N];
-  __shared__ __align__(16) float C_s[TT][N];
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
+// 16-B copy into shared memory; src_bytes = 0 zero-fills the destination.
+__device__ __forceinline__ void cp16(void* dst, const void* src,
+                                     int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// f32 keeps 4 lanes per channel: with 2, a block's tiles pass the 48 KB
+// of shared memory it may hold statically.
+template <typename T>
+constexpr int kParts = sizeof(T) == 2 ? SS_PARTS : 4;
+
+template <int N, int P, typename T>
+struct Tile {
+  static constexpr int CH = THREADS / P;     // channels per block
+  static constexpr int NP = (N + P - 1) / P; // state columns per lane
+  static constexpr int NPAD = NP * P;
+  T x[2][TT][CH];
+  float dt[2][TT][CH];
+  T bc[2][TT][2 * N];            // B_t then C_t, as copied
+  float Bf[TT][NPAD], Cf[TT][NPAD];
+  T y[TT][CH];
+};
+
+// Issue the copies of time tile [t0, t0 + TT) into buffer `buf`.
+template <int N, int P, typename T>
+__device__ __forceinline__ void stage(Tile<N, P, T>& s, int buf, const Args& a,
+                                      long long b, int c0, int t0, bool vec) {
+  using S = Tile<N, P, T>;
   const T* x = static_cast<const T*>(a.x);
   const T* Bm = static_cast<const T*>(a.B);
   const T* Cm = static_cast<const T*>(a.C);
-  T* y = static_cast<T*>(a.y);
+  const int tid = threadIdx.x;
+  if (vec) {
+    constexpr int XE = 16 / sizeof(T);             // elements per copy
+    constexpr int XC = S::CH / XE, DC = S::CH / 4; // copies per row
+    // copies per B (C) row; only taken when N * sizeof(T) is a multiple
+    // of 16 (can_vec), 1 keeps the unused instantiations well-formed
+    constexpr int BC = N * sizeof(T) >= 16 ? N * sizeof(T) / 16 : 1;
+    for (int i = tid; i < TT * (XC + DC + 2 * BC); i += THREADS) {
+      int t, j;
+      if (i < TT * XC) {
+        t = i / XC; j = i - t * XC;
+        const int c = c0 + j * XE;
+        const bool ok = t0 + t < a.L && c < a.di;
+        cp16(&s.x[buf][t][j * XE],
+             ok ? x + b * a.x_b + (t0 + t) * a.x_t + c : x, ok ? 16 : 0);
+      } else if (i < TT * (XC + DC)) {
+        const int k = i - TT * XC;
+        t = k / DC; j = k - t * DC;
+        const int c = c0 + j * 4;
+        const bool ok = t0 + t < a.L && c < a.di;
+        cp16(&s.dt[buf][t][j * 4],
+             ok ? a.dt + b * a.dt_b + (t0 + t) * a.dt_t + c : a.dt,
+             ok ? 16 : 0);
+      } else {
+        const int k = i - TT * (XC + DC);
+        t = k / (2 * BC); j = k - t * 2 * BC;
+        const bool ok = t0 + t < a.L;
+        const T* src = j < BC ? Bm + b * a.B_b + (t0 + t) * a.B_t + j * XE
+                              : Cm + b * a.C_b + (t0 + t) * a.C_t
+                                  + (j - BC) * XE;
+        cp16(&s.bc[buf][t][j * XE], ok ? src : Bm, ok ? 16 : 0);
+      }
+    }
+  } else {
+    const T zero = T(0.f);
+    for (int i = tid; i < TT * S::CH; i += THREADS) {
+      const int t = i / S::CH, j = i - t * S::CH;
+      const int c = c0 + j;
+      const bool ok = t0 + t < a.L && c < a.di;
+      s.x[buf][t][j] = ok ? x[b * a.x_b + (t0 + t) * a.x_t + c] : zero;
+      s.dt[buf][t][j] = ok ? a.dt[b * a.dt_b + (t0 + t) * a.dt_t + c] : 0.f;
+    }
+    for (int i = tid; i < TT * 2 * N; i += THREADS) {
+      const int t = i / (2 * N), n = i - t * 2 * N;
+      const bool ok = t0 + t < a.L;
+      s.bc[buf][t][n] = !ok ? zero
+          : n < N ? Bm[b * a.B_b + (t0 + t) * a.B_t + n]
+                  : Cm[b * a.C_b + (t0 + t) * a.C_t + n - N];
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N, int P, typename T>
+__global__ void __launch_bounds__(THREADS, SS_MIN_BLOCKS)
+ss_fwd_kernel(const Args a, int vec) {
+  using S = Tile<N, P, T>;
+  constexpr int NP = S::NP;
+  __shared__ __align__(16) S s;
+
   const long long b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int c = blockIdx.x * BLOCK + tid;
+  const int cl = tid / P, part = tid % P;
+  const int c0 = blockIdx.x * S::CH;
+  const int c = c0 + cl;
   const bool live = c < a.di;
 
-  float h[N], a2[N];
+  // this lane's state columns part*NP .. part*NP + NP - 1 (those >= N stay 0)
+  float h[NP], a2[NP];
   float Dc = 0.f;
-  if (live) {
-    const float* hp = a.h0 + (b * a.di + c) * N;
-    const float* ap = a.A + (long long)c * N;
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = hp[n];
-      a2[n] = ap[n] * LOG2E;
-    }
-    Dc = a.D[c];
-  } else {
-#pragma unroll
-    for (int n = 0; n < N; ++n) h[n] = a2[n] = 0.f;
+  for (int i = 0; i < NP; ++i) {
+    const int n = part * NP + i;
+    const bool on = live && n < N;
+    h[i] = on ? a.h0[(b * a.di + c) * N + n] : 0.f;
+    a2[i] = on ? a.A[(long long)c * N + n] * LOG2E : 0.f;
   }
+  if (live) Dc = a.D[c];
 
-  for (int t0 = 0; t0 < a.L; t0 += TT) {
-    const int nt = min(TT, a.L - t0);
-    __syncthreads();            // the previous tile is consumed
+  const int ntiles = (a.L + TT - 1) / TT;
+  stage(s, 0, a, b, c0, 0, vec);
+  for (int k = 0; k < ntiles; ++k) {
+    const int cur = k & 1, t0 = k * TT;
+    if (k + 1 < ntiles) {
+      stage(s, cur ^ 1, a, b, c0, t0 + TT, vec);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();             // tile k has landed
+    for (int i = tid; i < TT * S::NPAD; i += THREADS) {
+      const int t = i / S::NPAD, n = i - t * S::NPAD;
+      s.Bf[t][n] = n < N ? to_f32(s.bc[cur][t][n]) : 0.f;
+      s.Cf[t][n] = n < N ? to_f32(s.bc[cur][t][N + n]) : 0.f;
+    }
+    __syncthreads();             // B and C of tile k are in f32
+
 #pragma unroll
     for (int t = 0; t < TT; ++t) {
-      float xv = 0.f, dv = 0.f;
-      if (live && t < nt) {
-        xv = to_f32(x[b * a.x_b + (t0 + t) * a.x_t + c]);
-        dv = a.dt[b * a.dt_b + (t0 + t) * a.dt_t + c];
-      }
-      x_s[t][tid] = xv;
-      dt_s[t][tid] = dv;
-    }
-    for (int i = tid; i < nt * N; i += BLOCK) {
-      const int t = i / N, n = i - t * N;
-      B_s[t][n] = to_f32(Bm[b * a.B_b + (t0 + t) * a.B_t + n]);
-      C_s[t][n] = to_f32(Cm[b * a.C_b + (t0 + t) * a.C_t + n]);
-    }
-    __syncthreads();
-    if (live) {
-      T* yp = y + (b * a.L + t0) * a.di + c;
-      for (int t = 0; t < nt; ++t) {
-        const float dv = dt_s[t][tid], xv = x_s[t][tid];
-        const float dx = dv * xv;
-        float acc = 0.f;
+      const float dv = s.dt[cur][t][cl];
+      const float xv = to_f32(s.x[cur][t][cl]);
+      const float dx = dv * xv;
+      const float* Bt = &s.Bf[t][part * NP];
+      const float* Ct = &s.Cf[t][part * NP];
+      float prod[NP];
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = exp2f(dv * a2[n]) * h[n] + dx * B_s[t][n];
-          acc += h[n] * C_s[t][n];
-        }
-        store(yp + (long long)t * a.di, acc + Dc * xv);
+      for (int i = 0; i < NP; ++i) {
+        h[i] = fmaf(fast_exp2(dv * a2[i]), h[i], dx * Bt[i]);
+        prod[i] = h[i] * Ct[i];
       }
+#pragma unroll
+      for (int w = 1; w < NP; w *= 2)      // pairwise: a tree, not a chain
+#pragma unroll
+        for (int i = 0; i + w < NP; i += 2 * w) prod[i] += prod[i + w];
+      float acc = prod[0];
+#pragma unroll
+      for (int off = P / 2; off >= 1; off /= 2)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (part == t % P) from_f32(&s.y[t][cl], acc + Dc * xv);
+    }
+    __syncthreads();             // the y tile is complete
+
+    T* y = static_cast<T*>(a.y);
+    const int nt = min(TT, a.L - t0);
+    for (int i = tid; i < nt * S::CH; i += THREADS) {
+      const int t = i / S::CH, j = i - t * S::CH;
+      if (c0 + j < a.di) y[(b * a.L + t0 + t) * a.di + c0 + j] = s.y[t][j];
     }
   }
   if (live) {
-    float* hp = a.h_last + (b * a.di + c) * N;
 #pragma unroll
-    for (int n = 0; n < N; ++n) hp[n] = h[n];
+    for (int i = 0; i < NP; ++i) {
+      const int n = part * NP + i;
+      if (n < N) a.h_last[(b * a.di + c) * N + n] = h[i];
+    }
   }
 }
 
 template <typename T, int N = 1>
-cudaError_t launch(int n, int Bt, const Args& a, cudaStream_t st) {
+cudaError_t launch(int n, int Bt, const Args& a, int vec, cudaStream_t st) {
   if (n == N) {
-    dim3 grid((a.di + BLOCK - 1) / BLOCK, Bt);
-    ss_fwd_kernel<N, T><<<grid, BLOCK, 0, st>>>(a);
+    constexpr int P = kParts<T>;
+    dim3 grid((a.di + Tile<N, P, T>::CH - 1) / Tile<N, P, T>::CH, Bt);
+    ss_fwd_kernel<N, P, T><<<grid, THREADS, 0, st>>>(a, vec);
     return cudaGetLastError();
   }
   if constexpr (N < MAX_N) {
-    return launch<T, N + 1>(n, Bt, a, st);
+    return launch<T, N + 1>(n, Bt, a, vec, st);
   } else {
     return cudaErrorInvalidValue;
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Whether every 16-B copy of `stage` is aligned: bases, the strides of
+// dims that are stepped, whole 16-B runs of channels and of B/C rows.
+bool can_vec(const Args& a, int Bt, int N, int esize) {
+  auto ok = [&](long long stride, int extent) {
+    return extent == 1 || stride * esize % 16 == 0;
+  };
+  auto ok4 = [&](long long stride, int extent) {
+    return extent == 1 || stride * 4 % 16 == 0;
+  };
+  return aligned16(a.x) && aligned16(a.dt) && aligned16(a.B) &&
+         aligned16(a.C) && a.di * esize % 16 == 0 && a.di % 4 == 0 &&
+         N * esize % 16 == 0 && ok(a.x_b, Bt) && ok(a.x_t, a.L) &&
+         ok4(a.dt_b, Bt) && ok4(a.dt_t, a.L) && ok(a.B_b, Bt) &&
+         ok(a.B_t, a.L) && ok(a.C_b, Bt) && ok(a.C_t, a.L);
 }
 
 }  // namespace
@@ -174,7 +316,8 @@ extern "C" int ss_fwd(int dtype, const void* x, const void* dt, const void* A,
          y, static_cast<float*>(h_last), L, di,
          x_b, x_t, dt_b, dt_t, B_b, B_t, C_b, C_t};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = dtype == 0 ? launch<float>(N, Bt, a, st)
-                               : launch<__nv_bfloat16>(N, Bt, a, st);
+  const int vec = can_vec(a, Bt, N, dtype == 0 ? 4 : 2);
+  cudaError_t err = dtype == 0 ? launch<float>(N, Bt, a, vec, st)
+                               : launch<__nv_bfloat16>(N, Bt, a, vec, st);
   return (int)err;
 }

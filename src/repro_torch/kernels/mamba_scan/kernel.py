@@ -38,15 +38,16 @@ def build() -> Path:
 
 def _load():
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.ss_fwd
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                           + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                lib = ctypes.CDLL(str(build()))
+                fn = lib.ss_fwd
+                fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                               + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
+                               + [ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+                _lib = lib
     return _lib
 
 

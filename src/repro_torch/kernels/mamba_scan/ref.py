@@ -10,6 +10,10 @@ Recurrence (diagonal SSM):
   * ``cf_scan``             — the forward of the reference's closed-form
     path (``_fwd_states`` + ``_cf_scan``), whose scan pairs are
     materialized in ``sdt``: the port's CPU path.
+  * ``selective_scan_blocked`` — the reference's two-level blocked scan:
+    a sequential recurrence inside blocks of time, a scan over the block
+    boundaries, then one combine. Not on any path; held against the JAX
+    function and ``selective_scan_ref`` by the CPU tests.
   * ``selective_step_ref``  — one decode token.
 
 ``_chunk_scan`` is the odd/even recursion of ``jax.lax.associative_scan``,
@@ -72,6 +76,57 @@ def selective_scan_ref(x, dt, A, B, C, D, h0, *, chunk: int = 512):
         y = torch.einsum("blds,bls->bld", hc, Cf[:, sl])
         ys.append(y + D.float() * x_c)
         h = hc[:, -1]
+    return torch.cat(ys, 1).to(x.dtype), h
+
+
+def selective_scan_blocked(x, dt, A, B, C, D, h0, *, block: int = 32,
+                           chunk: int = 8192):
+    """Shapes and result as ``selective_scan_ref``; the association order
+    of ``repro.kernels.mamba_scan.ref.selective_scan_blocked``.
+
+    Level 1 runs the recurrence inside each block of ``block`` steps from a
+    zero state, keeping the running product of the decays (``A_cum``) and
+    the accumulated input (``B_cum``); level 2 takes an exclusive scan over
+    the blocks' last pairs, giving each block's starting state; level 3
+    combines, ``h = B_cum + A_cum * h_start``. A ragged tail shorter than a
+    block runs through ``selective_scan_ref``.
+    """
+    Bt, L, di = x.shape
+    N = A.shape[1]
+    chunk = min(chunk, L)
+    h = h0.float()
+    Af, Df = A.float(), D.float()
+    ys = []
+    for c0 in range(0, L, chunk):
+        Lc = min(chunk, L - c0)
+        bs = min(block, Lc)
+        nb = Lc // bs
+        rem = Lc - nb * bs
+        sl = slice(c0, c0 + nb * bs)
+        dt_c, x_c = dt[:, sl].float(), x[:, sl].float()
+        a = torch.exp(dt_c[..., None] * Af).reshape(Bt, nb, bs, di, N)
+        b = ((dt_c * x_c)[..., None] * B[:, sl].float()[:, :, None, :]
+             ).reshape(Bt, nb, bs, di, N)
+        As, Bs = [a[:, :, 0]], [b[:, :, 0]]          # level 1
+        for t in range(1, bs):
+            As.append(a[:, :, t] * As[-1])
+            Bs.append(a[:, :, t] * Bs[-1] + b[:, :, t])
+        A_cum, B_cum = torch.stack(As, 2), torch.stack(Bs, 2)
+        Ap, Bp = _chunk_scan(A_cum[:, :, -1], B_cum[:, :, -1])   # level 2
+        Ap = torch.cat([torch.ones_like(Ap[:, :1]), Ap[:, :-1]], 1)
+        Bp = torch.cat([torch.zeros_like(Bp[:, :1]), Bp[:, :-1]], 1)
+        h_start = Bp + Ap * h[:, None]
+        hc = B_cum + A_cum * h_start[:, :, None]                 # level 3
+        h = hc[:, -1, -1]
+        hc = hc.reshape(Bt, nb * bs, di, N)
+        y = torch.einsum("blds,bls->bld", hc, C[:, sl].float())
+        ys.append(y + Df * x_c)
+        if rem:
+            tail = slice(c0 + nb * bs, c0 + Lc)
+            y_t, h = selective_scan_ref(x[:, tail], dt[:, tail], A,
+                                        B[:, tail], C[:, tail], D, h,
+                                        chunk=rem)
+            ys.append(y_t.float())
     return torch.cat(ys, 1).to(x.dtype), h
 
 

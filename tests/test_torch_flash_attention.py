@@ -167,3 +167,54 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv_slices"])
+def test_body_takes_tma_where_tma_can_address(D, layout):
+    """The tma body for bf16 whose bases are 16-B aligned and whose
+    strides are multiples of 16 B: contiguous tensors and slices of a fused
+    qkv projection alike. Shapes and strides only; nothing launches."""
+    if layout == "contiguous":
+        q, k, v = _bf16((2, 40, 8, D)), _bf16((2, 40, 2, D)), \
+            _bf16((2, 40, 2, D))
+    else:
+        qkv = _bf16((2, 40, 12, D))
+        q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:12]
+        assert not q.is_contiguous()
+    assert kernel._body(q, k, v) == "tma"
+
+
+def test_body_takes_mma_where_tma_cannot_address():
+    q, k, v = _bf16((1, 16, 2, 5)), _bf16((1, 16, 1, 5)), \
+        _bf16((1, 16, 1, 5))
+    assert kernel._body(q, k, v) == "mma"            # head dim of 5
+    # a sequence stride of 65 elements (130 B) is not a multiple of 16 B
+    wide = _bf16((1, 16, 65))
+    q = wide[:, :, :64].reshape(1, 16, 1, 64)
+    k = _bf16((1, 16, 1, 64))
+    assert q.stride(1) == 65
+    assert kernel._body(q, k, k) == "mma"
+    # a base 2 B past a 16-B boundary
+    flat = _bf16((1 + 16 * 64,))
+    q = flat[1:].reshape(1, 16, 1, 64)
+    assert kernel._body(q, k, k) == "mma"
+    assert kernel._body(k, k, k) == "tma"
+
+
+def test_body_takes_f32_for_float32():
+    q = torch.zeros((1, 16, 2, 64))
+    k = torch.zeros((1, 16, 1, 64))
+    assert kernel._body(q, k, k) == "f32"
+
+
+def test_size_one_dims_take_dense_strides():
+    """A size-1 dim is never stepped: its stride may be anything torch
+    gives it, and the kernel gets the dense one."""
+    q = _bf16((1, 40, 1, 64)).as_strided((1, 40, 1, 64), (3, 64, 7, 1))
+    assert kernel._strides(q) == (40 * 64, 64, 64)
+    assert kernel._body(q, q, q) == "tma"

@@ -36,16 +36,70 @@ def test_flash_attention_kernel_matches_plain(B, S, H, KV, D, kv_len,
     g = torch.Generator().manual_seed(S + H)
     q, k, v = (torch.randn(shape, generator=g).to("cuda", dtype)
                for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
-    before = kernel.launches
+    body = kernel._body(q, k, v)
+    assert body == ("f32" if dtype == torch.float32 else "tma")
+    before, by_body = kernel.launches, kernel.launches_by_body[body]
     got = ops.flash_attention(q, k, v, scale=D ** -0.5, causal=causal,
                               kv_len=kv_len)
     want = ref.attention_ref(q, k, v, scale=D ** -0.5, causal=causal,
                              kv_len=kv_len)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
+    assert kernel.launches_by_body[body] == by_body + 1
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,kv_len,causal", [
+    (1, 128, 2, 2, 128, None, True),
+    (2, 256, 4, 2, 128, None, False),
+    (1, 8, 8, 2, 128, None, True),
+    (1, 200, 2, 1, 96, None, True),
+    (1, 128, 2, 2, 128, 70, False),
+    (4, 448, 32, 4, 64, None, True),
+    (4, 2048, 32, 4, 64, None, True),      # the serve profile's full prompt
+])
+@pytest.mark.parametrize("body", ["tma", "mma"])
+def test_flash_attention_bf16_bodies_match_plain(B, S, H, KV, D, kv_len,
+                                                 causal, body):
+    """Both bf16 bodies on the same inputs: the tma body that ``_body``
+    picks, and the mma.sync body forced through the private entry."""
+    _card()
+    g = torch.Generator().manual_seed(S + H + 1)
+    q, k, v = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    before = kernel.launches_by_body[body]
+    got = kernel._flash_attention_fwd(q, k, v, scale=D ** -0.5,
+                                      causal=causal, kv_len=kv_len,
+                                      body=body)
+    want = ref.attention_ref(q, k, v, scale=D ** -0.5, causal=causal,
+                             kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_body[body] == before + 1
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cross_attention_shape():
+    """Non-causal Sq != Skv (the reference's cross-attention call), on the
+    tma body."""
+    _card()
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn((2, 150, 8, 64), generator=g).to("cuda", torch.bfloat16)
+    k, v = (torch.randn((2, 300, 2, 64), generator=g).to("cuda",
+                                                         torch.bfloat16)
+            for _ in range(2))
+    assert kernel._body(q, k, v) == "tma"
+    got = kernel.flash_attention_fwd(q, k, v, scale=0.125, causal=False)
+    want = ref.attention_ref(q, k, v, scale=0.125, causal=False)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
 
 
 @pytest.mark.cuda
@@ -57,6 +111,7 @@ def test_flash_attention_kernel_takes_strided_inputs():
                                                            torch.bfloat16)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:8]
     assert not q.is_contiguous()
+    assert kernel._body(q, k, v) == "tma"
     got = kernel.flash_attention_fwd(q, k, v, scale=0.125, causal=True)
     want = ref.attention_ref(q, k, v, scale=0.125, causal=True)
     torch.cuda.synchronize()
@@ -87,6 +142,7 @@ def _scan_inputs(Bt, L, di, N, dtype, seed):
     (1, 64, 32, 8), (2, 128, 64, 16), (2, 96, 48, 16),   # the reference's
     (1, 200, 8000, 16),       # ragged time tile and channel block
     (2, 37, 130, 5),          # N outside 4/8/16
+    (4, 2048, 8192, 16),      # the serve profile's full prompt
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_kernel_matches_plain(Bt, L, di, N, dtype):
