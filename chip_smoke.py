@@ -694,7 +694,9 @@ def main() -> int:
               "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
               "src/repro/kernels/mamba_scan/kernel.py:54",
               ss_launches["selective_scan_fwd"], ss, ss_long,
-              "ss_fwd_kernel (bf16: state columns split over 2 lanes)")]}
+              f"ss_fwd_kernel (bf16: state columns split over "
+              f"{counters['selective_scan_fwd'].lanes(torch.bfloat16)} "
+              f"lanes)")]}
     record["kernels"][0]["mma_body"] = fa["mma_body"]
     print(f"  [total: {time.perf_counter() - t_start:.3f} s wall]",
           flush=True)

@@ -443,18 +443,12 @@ constexpr int ROWB = 128;          // bytes per shared-memory row: one box of
                                    // 64 bf16, the 128-B swizzle's span
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Tile choices, overridable at build time for scripts/torch_kernel_variants.py.
 // 64 keys per stage keep the d=64 body at ~95 registers, so two blocks
-// (four consumer warpgroups) share an SM; 128 keys take ~159 and one block,
-// and ran slower on an H100 at both the serve shape and S=2048 (PERF.md).
-#ifndef FA_TMA_BN_SMALL_D
-#define FA_TMA_BN_SMALL_D 64       // keys per stage for head dims <= 64
-#endif
-#ifndef FA_TMA_STAGES
-#define FA_TMA_STAGES 2            // K/V ring stages
-#endif
-
-constexpr int NST = FA_TMA_STAGES;
+// (four consumer warpgroups) share an SM; 128 keys took ~159 and one block,
+// and ran slower on an H100 at both the serve shape and S=2048, as did a
+// ring of 4 stages (PERF.md).
+constexpr int BN = 64;             // keys per K/V stage
+constexpr int NST = 2;             // K/V ring stages
 
 // Shared-memory plan of one block, in bytes from a 1024-B aligned base (the
 // swizzle repeats every 8 rows of 128 B). The q region holds the q tile,
@@ -462,7 +456,6 @@ constexpr int NST = FA_TMA_STAGES;
 // warpgroup's rows of the output.
 template <int DQ, int DV>
 struct TmaPlan {
-  static constexpr int BN = (DQ == 64 && DV == 64) ? FA_TMA_BN_SMALL_D : 64;
   static constexpr int NQB = DQ / 64, NVB = DV / 64;
   static constexpr int QBOX = TQ * ROWB;
   static constexpr int QREG = (NQB > NVB ? NQB : NVB) * QBOX;
@@ -564,9 +557,10 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[R][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e]) :: "memory");
 }
 
-// m64nNk16 bf16 -> f32, N = 64 or 128. wgmma_ss: A and B from shared
-// memory, both K-major. wgmma_rs: A from registers, B from shared memory
-// MN-major (the transpose flag, which 16-bit types allow).
+// m64nNk16 bf16 -> f32. wgmma_ss (N = 64, one tile of keys): A and B from
+// shared memory, both K-major. wgmma_rs (N = 64 or 128, the value width): A
+// from registers, B from shared memory MN-major (the transpose flag, which
+// 16-bit types allow).
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
                                          uint64_t db, int scale_d) {
   asm volatile(
@@ -605,32 +599,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
@@ -675,7 +643,6 @@ fa_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap to,
                   int G, int Sq, float scale_log2, int causal, int kv_len) {
   using P = TmaPlan<DQ, DV>;
-  constexpr int BN = P::BN;
   extern __shared__ unsigned char tma_smem[];
   const uint32_t raw = smem_u32(tma_smem);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -941,8 +908,8 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
   using P = TmaPlan<DQ, DV>;
   CUtensorMap tq, tk, tv, to;
   if (!make_map(&tq, q, dq, H, Sq, B, sq, TQ) ||
-      !make_map(&tk, k, dq, KV, Skv, B, sk, P::BN) ||
-      !make_map(&tv, v, dv, KV, Skv, B, sv, P::BN) ||
+      !make_map(&tk, k, dq, KV, Skv, B, sk, BN) ||
+      !make_map(&tv, v, dv, KV, Skv, B, sv, BN) ||
       !make_map(&to, o, dv, H, Sq, B, so, 64))
     return cudaErrorInvalidValue;
   static bool configured = false;   // the attribute is set once per body

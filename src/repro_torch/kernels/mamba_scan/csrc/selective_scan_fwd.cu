@@ -32,8 +32,8 @@
 // ahead of the dependent multiply-add chain. More lanes per channel give
 // more resident warps but repeat each step's fixed work (the x and dt
 // reads, the shuffles, the y write) on every lane: on an H100, P = 2
-// (16 warps per SM at the serve shape) beat P = 4 (31) and P = 8 (62),
-// see scripts/torch_kernel_variants.py and PERF.md.
+// (16 warps per SM at the serve shape) beat P = 4 (31) and P = 8 (62)
+// (PERF.md).
 //
 // Time tiles of 32 steps of x, dt, B and C are staged in shared memory
 // with cp.async, double-buffered: the next tile's copies are in flight
@@ -55,12 +55,7 @@ constexpr int THREADS = 128;
 constexpr int TT = 32;          // timesteps per staged tile
 constexpr int MAX_N = 16;       // state width limit
 constexpr float LOG2E = 1.4426950408889634f;
-#ifndef SS_PARTS
-#define SS_PARTS 2              // lanes sharing one channel's state (bf16)
-#endif
-#ifndef SS_MIN_BLOCKS
-#define SS_MIN_BLOCKS 4         // resident blocks the registers must allow
-#endif
+constexpr int MIN_BLOCKS = 4;   // resident blocks the registers must allow
 
 struct Args {
   const void* x;
@@ -99,10 +94,10 @@ __device__ __forceinline__ void cp16(void* dst, const void* src,
                :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 
-// f32 keeps 4 lanes per channel: with 2, a block's tiles pass the 48 KB
-// of shared memory it may hold statically.
+// Lanes sharing one channel's state: 2 for bf16. f32 keeps 4: with 2, a
+// block's tiles pass the 48 KB of shared memory it may hold statically.
 template <typename T>
-constexpr int kParts = sizeof(T) == 2 ? SS_PARTS : 4;
+constexpr int kParts = sizeof(T) == 2 ? 2 : 4;
 
 template <int N, int P, typename T>
 struct Tile {
@@ -178,7 +173,7 @@ __device__ __forceinline__ void stage(Tile<N, P, T>& s, int buf, const Args& a,
 }
 
 template <int N, int P, typename T>
-__global__ void __launch_bounds__(THREADS, SS_MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 ss_fwd_kernel(const Args a, int vec) {
   using S = Tile<N, P, T>;
   constexpr int NP = S::NP;
@@ -320,4 +315,10 @@ extern "C" int ss_fwd(int dtype, const void* x, const void* dt, const void* A,
   cudaError_t err = dtype == 0 ? launch<float>(N, Bt, a, vec, st)
                                : launch<__nv_bfloat16>(N, Bt, a, vec, st);
   return (int)err;
+}
+
+// Lanes that share one channel's state for this dtype (0 = float32,
+// 1 = bfloat16), as this build launches the kernel.
+extern "C" int ss_fwd_lanes(int dtype) {
+  return dtype == 0 ? kParts<float> : kParts<__nv_bfloat16>;
 }

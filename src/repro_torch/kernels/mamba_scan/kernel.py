@@ -47,8 +47,16 @@ def _load():
                                + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 8
                                + [ctypes.c_void_p])
                 fn.restype = ctypes.c_int
+                lib.ss_fwd_lanes.argtypes = [ctypes.c_int]
+                lib.ss_fwd_lanes.restype = ctypes.c_int
                 _lib = lib
     return _lib
+
+
+def lanes(dtype: torch.dtype) -> int:
+    """Lanes that share one channel's state in the built kernel for x of
+    ``dtype``; builds and loads the library if needed."""
+    return _load().ss_fwd_lanes(_DTYPES[dtype])
 
 
 def _check(x, dt, A, B, C, D, h0):

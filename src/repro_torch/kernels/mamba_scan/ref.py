@@ -12,8 +12,10 @@ Recurrence (diagonal SSM):
     materialized in ``sdt``: the port's CPU path.
   * ``selective_scan_blocked`` — the reference's two-level blocked scan:
     a sequential recurrence inside blocks of time, a scan over the block
-    boundaries, then one combine. Not on any path; held against the JAX
-    function and ``selective_scan_ref`` by the CPU tests.
+    boundaries, then one combine. Not on any path yet: the plain form of
+    a kernel that splits time across threads, for batches too small to
+    fill the card with channels. Held against the JAX function and
+    ``selective_scan_ref`` by the CPU tests.
   * ``selective_step_ref``  — one decode token.
 
 ``_chunk_scan`` is the odd/even recursion of ``jax.lax.associative_scan``,
