@@ -33,7 +33,24 @@ each phase's wall time printed:
   3b. serve falcon-mamba-7b at its full config (64 Mamba layers, d_model
      4096, bf16, random weights from a seed) the same way: 4 requests in
      one batch; every prefill launches the selective scan once per layer;
-  4b. falcon-mamba at 2 layers, full width, card against CPU, as phase 4.
+  4b. falcon-mamba at 2 layers, full width, card against CPU, as phase 4;
+  5. the paper's adjoint-tomography workflow (``repro_torch.apps``) at the
+     Fig 11 and Fig 12 meshes (nt=200, 16 receivers, f32) through
+     EmeraldExecutor twice: policy "never" (all four steps on the host
+     CPU) and "annotate" (steps 2-4 offloaded to the card), from the same
+     observations and starting model, one warm-up and 3 timed iterations
+     each; seconds per iteration, per-step exec seconds, offloads and MDSS
+     bytes per arm, the measured reduction, and the two arms held equal
+     (chi and the final model at rtol 1e-5, the final models bitwise, 9
+     offloads, obs shipped once);
+  6. the Fig 11 offloaded arm again with a ``Fabric(workers=2)`` behind
+     the cloud tier: the device steps stay on the card, MDSS staging
+     crosses worker processes; results bitwise those of phase 5, the same
+     MDSS bytes, a registry step in a worker, no worker left afterwards;
+  7. ``FrontDoor`` in front of tinyllama-1.1b (full config, bf16) on the
+     card: 16 client threads, 64 requests of a 128-token window each,
+     coalesced into fused forwards that launch the flash kernel once per
+     layer; every row held against its window run alone.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +84,12 @@ H_TOL = 2e-4            # the selective scan's h_last (tests/test_kernels.py)
 LOGITS_REL_TOL = 5e-2
 ARGMAX_AGREE_MIN = 0.75
 LONG_PROMPT = 2048      # the serve profile's full prompt (ShapeProfile)
+AT_ITERS = 3            # timed adjoint-tomography iterations per arm
+AT_RTOL = 1e-5          # local vs offloaded (tests/test_at.py)
+FD_REQUESTS, FD_CLIENTS, FD_WINDOW = 64, 16, 128
+# FrontDoor rows (bf16 logits, batched) against the same window alone:
+# the bf16 bounds PERF.md uses card against CPU
+FD_REL_TOL = 2e-2
 
 
 class CheckFailed(RuntimeError):
@@ -616,6 +639,323 @@ def phase_model_parity(label, cfg):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- adjoint tomography
+def emerald_manager(fabric=None):
+    """A MigrationManager over the default tiers (cloud = the card), with
+    ``fabric`` behind the cloud tier when given; returns it and the
+    fabric's MDSS transport (None without one)."""
+    from repro_torch.core import CostModel, MDSS, MigrationManager, \
+        default_tiers
+    tiers = default_tiers()
+    cm = CostModel(tiers)
+    mdss = MDSS(tiers, cost_model=cm)
+    transport = None
+    if fabric is not None:
+        from repro_torch.cloud import attach
+        transport = attach(tiers, fabric, mdss=mdss, cost_model=cm)
+    return MigrationManager(tiers, mdss, cm), transport
+
+
+def at_arm(cfg, obs, policy, fabric=None):
+    """One warm-up and AT_ITERS timed AT iterations; model and obs are
+    handed in once and stay MDSS-resident (the paper's saving)."""
+    from repro_torch.apps import adjoint_tomography as at
+    from repro_torch.core import EmeraldExecutor, partition
+    mgr, transport = emerald_manager(fabric)
+    mdss = mgr.mdss
+    check(mgr.tiers["cloud"].device.type == "cuda", "cloud tier on the card")
+    ex = EmeraldExecutor(partition(at.build_workflow(cfg)), mgr,
+                         policy=policy)
+    init = {"model": at.starting_model(cfg, "cpu"), "obs": obs}
+    secs, chis, up, down = [], [], [], []
+    for it in range(1 + AT_ITERS):
+        if it == 1:
+            n_rep, n_ev = len(mgr.reports), len(ex.events)
+        before = dict(mdss.bytes_moved)
+        t = time.perf_counter()
+        res = ex.run(init)
+        secs.append(time.perf_counter() - t)
+        init = {}
+        chis.append(res["chi"])
+        moved = {k: v - before.get(k, 0) for k, v in mdss.bytes_moved.items()}
+        up.append(moved.get(("local", "cloud"), 0))
+        down.append(moved.get(("cloud", "local"), 0))
+    exec_s = {}
+    for rep in mgr.reports[n_rep:]:
+        key = f"{rep.step}@{rep.tier}"
+        exec_s[key] = exec_s.get(key, 0.0) + rep.seconds / AT_ITERS
+    offloads = sum(1 for e in ex.events[n_ev:]
+                   if e.kind == "offload" and e.tier == "cloud")
+    obs_ships = [e for e in mdss.sync_events if e[0] == "obs"]
+    rec = {"mesh": cfg.mesh_name, "nt": cfg.nt, "policy": policy,
+           "fabric": fabric is not None,
+           "s_per_iter": sum(secs[1:]) / AT_ITERS, "warmup_s": secs[0],
+           "iter_s": secs[1:], "exec_s_per_iter": exec_s,
+           "offloads": offloads, "chi": [float(c) for c in chis],
+           "bytes_up_per_iter": up, "bytes_down_per_iter": down,
+           "bytes_moved": {f"{a}->{b}": n
+                           for (a, b), n in mdss.bytes_moved.items()},
+           "obs_ships": len(obs_ships)}
+    return rec, chis, res["model"], mdss, transport
+
+
+def at_kernel_profile(cfg, obs):
+    """One Fréchet-kernel step (forward, recompute and backward through
+    nt leapfrog steps) on the card at the starting model: wall time, the
+    device time of every kernel it launches (torch.profiler), the launch
+    count, and the card's idle share of the profiled call's wall time
+    (device and wall time of the same call; the unprofiled wall time
+    beside it shows what the profiler adds on the host)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.apps import adjoint_tomography as at
+    fn = at.step_kernel(cfg)
+    model, obs = at.starting_model(cfg, "cuda"), obs.to("cuda")
+    fn(model, obs)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn(model, obs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn(model, obs)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA]
+    dev_s = sum(getattr(e, "device_time_total", 0.0) for e in dev) / 1e6
+    launches = sum(e.count for e in dev)
+    return {"wall_s": wall, "profiled_wall_s": prof_wall, "device_s": dev_s,
+            "device_launches": launches,
+            "launches_per_timestep": launches / cfg.nt,
+            "idle_share": 1 - dev_s / prof_wall if dev_s else None}
+
+
+def max_rel(a, b):
+    import torch
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def phase_at(cfg):
+    """Local against offloaded at one mesh; returns the offloaded arm."""
+    import torch
+    from repro_torch.apps import adjoint_tomography as at
+    print(f"== phase 5: adjoint tomography {cfg.mesh_name}, nt={cfg.nt}: "
+          f"local (host CPU) vs offloaded (steps 2-4 on the card)",
+          flush=True)
+    t = time.perf_counter()
+    obs = at.make_observations(cfg, "cuda").cpu()
+    print(f"  observations {tuple(obs.shape)} in "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    counters = kernel_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    local, lchis, lmodel, _, _ = at_arm(cfg, obs, "never")
+    off, ochis, omodel, omdss, _ = at_arm(cfg, obs, "annotate")
+    launches = {n: mod.launches for n, mod in counters.items()}
+    profile = at_kernel_profile(cfg, obs)
+    rec = {"mesh": cfg.mesh_name, "local": local, "offloaded": off,
+           "kernel_step_on_card": profile,
+           "host_cpus": len(os.sched_getaffinity(0)),
+           "torch_threads": torch.get_num_threads(),
+           "reduction": 1 - off["s_per_iter"] / local["s_per_iter"],
+           "chi_max_rel_diff": max_rel(torch.stack(ochis),
+                                       torch.stack(lchis)),
+           "model_max_rel_diff": max_rel(omodel.cpu(), lmodel.cpu()),
+           "launches": launches}
+    print("  at " + json.dumps(rec), flush=True)
+    check(all(bool(torch.isfinite(torch.as_tensor(c))) for c in lchis + ochis)
+          and bool(torch.isfinite(omodel).all())
+          and tuple(omodel.shape) == (cfg.nx, cfg.ny, cfg.nz),
+          f"chi and the final model finite, model {tuple(omodel.shape)}")
+    check(lchis[-1] < lchis[0], f"misfit decreases: {local['chi']}")
+    check(rec["chi_max_rel_diff"] <= AT_RTOL
+          and rec["model_max_rel_diff"] <= AT_RTOL,
+          f"offloaded equals local: chi {rec['chi_max_rel_diff']:.3e}, "
+          f"model {rec['model_max_rel_diff']:.3e} (rtol {AT_RTOL})")
+    # every op of a step rounds alike on the host and the card (see
+    # adjoint_tomography._laplacian): only chi's final sum may differ
+    check(torch.equal(omodel.cpu(), lmodel.cpu()),
+          "final models of the two arms equal bitwise")
+    check(off["offloads"] == 3 * AT_ITERS and local["offloads"] == 0,
+          f"{off['offloads']} offloads in {AT_ITERS} iterations (steps 2-4)")
+    check(off["obs_ships"] == 1
+          and len(set(off["bytes_up_per_iter"][1:])) == 1
+          and off["bytes_up_per_iter"][1] < off["bytes_up_per_iter"][0],
+          f"obs shipped once; up bytes per iteration "
+          f"{off['bytes_up_per_iter']}")
+    check(not any(launches.values()),
+          f"no kernel launched on this path: {launches}")
+    print(f"  measured reduction {rec['reduction']:.4f} of the local time "
+          f"per iteration (the paper claims up to 0.55)", flush=True)
+    return {"obs": obs, "chis": ochis, "model": omodel, "mdss": omdss}
+
+
+def worker_processes():
+    """pids of live fabric workers of this port on this machine."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if b"repro_torch.cloud.worker" in cmd:
+            pids.append(int(d))
+    return pids
+
+
+def phase_at_fabric(cfg, offloaded):
+    print(f"== phase 6: adjoint tomography {cfg.mesh_name} offloaded, with "
+          f"a fabric behind the card", flush=True)
+    import numpy as np
+    import torch
+    from repro_torch.cloud import Fabric
+    from repro_torch.core import EmeraldExecutor, Workflow, partition
+    obs = offloaded["obs"]
+    counters = kernel_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    with Fabric(workers=2) as fabric:
+        pids = fabric.broker.worker_pids()
+        rec, chis, model, mdss, transport = at_arm(cfg, obs, "annotate",
+                                                   fabric)
+        launches = {n: mod.launches for n, mod in counters.items()}
+        # a registry step through the same manager: it runs in a worker
+        mgr, _ = emerald_manager(fabric)
+        wf = Workflow("registry-step")
+        wf.var("x")
+        wf.step("pid", None, inputs=("x",), outputs=("pid",),
+                remotable=True, device_step=False, remote_impl="pid")
+        ex = EmeraldExecutor(partition(wf), mgr)
+        out = ex.run({"x": np.float64(0.0)})
+        (off,) = [e for e in ex.events if e.kind == "offload"]
+    left = [p for p in worker_processes() if p in pids]
+    rec.update(shipped_bytes=transport.total_bytes_shipped(),
+               ship_events=len(transport.ship_events),
+               metadata_only_ships=transport.metadata_only_ships,
+               worker_pids=pids, registry_step_pid=int(out["pid"]),
+               launches=launches)
+    print("  at_fabric " + json.dumps(rec), flush=True)
+    check(all(torch.equal(a.cpu(), b.cpu())
+              for a, b in zip(chis, offloaded["chis"]))
+          and torch.equal(model.cpu(), offloaded["model"].cpu()),
+          "chi and the final model equal phase 5's offloaded arm bitwise")
+    check(rec["offloads"] == 3 * AT_ITERS,
+          f"{rec['offloads']} offloads, all in-process on the card")
+    check(dict(mdss.bytes_moved) == dict(offloaded["mdss"].bytes_moved),
+          f"MDSS accounts phase 5's bytes: {rec['bytes_moved']}")
+    check(rec["shipped_bytes"] > 0,
+          f"{rec['shipped_bytes']} wire bytes crossed worker processes")
+    check(off.info["remote"] and int(out["pid"]) in pids
+          and int(out["pid"]) != os.getpid(),
+          f"registry step ran in worker {int(out['pid'])} (driver "
+          f"{os.getpid()})")
+    check(not left, f"no worker process left after the fabric exits "
+          f"(workers were {pids})")
+    check(not any(launches.values()),
+          f"no kernel launched on this path: {launches}")
+
+
+def phase_frontdoor(cfg, run):
+    print(f"== phase 7: FrontDoor in front of {cfg.name} (full config) on "
+          f"the card", flush=True)
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch._tree import to_device
+    from repro_torch.launch.serve import FrontDoor
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.core import EmeraldRuntime
+    model = Model(run)
+    params, _ = init_on_card(model, seed=0)
+    dev_params = to_device(params, "cuda")
+    del params
+    prefill = model.prefill
+
+    def decode_window(tokens):
+        """Logits of each row's last position after the full forward
+        over its window: row-independent and stateless."""
+        toks = torch.from_numpy(np.ascontiguousarray(tokens)).to("cuda")
+        cache = tfm.init_cache(cfg, toks.shape[0], toks.shape[1], "cuda")
+        logits, _ = prefill(dev_params, {"tokens": toks}, cache)
+        return logits.float().cpu().numpy()
+
+    rng = np.random.default_rng(7)
+    windows = [rng.integers(0, cfg.vocab_size, FD_WINDOW).astype(np.int32)
+               for _ in range(FD_REQUESTS)]
+    decode_window(np.stack(windows[:2]))        # warm the card
+    mgr, _ = emerald_manager()
+    rows, lat = [None] * FD_REQUESTS, [None] * FD_REQUESTS
+    counters = kernel_counters()
+    with EmeraldRuntime(mgr, max_workers=4) as rt:
+        fd = FrontDoor(rt, decode_window, window_s=0.004, max_batch=32)
+
+        def client(c):
+            for i in range(c, FD_REQUESTS, FD_CLIENTS):
+                t = time.perf_counter()
+                rows[i] = fd.decode(windows[i]).result(120)
+                lat[i] = time.perf_counter() - t
+
+        for mod in counters.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FD_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        launches = {n: mod.launches for n, mod in counters.items()}
+        stats = fd.stats()
+        fd.close()
+    check(not any(t.is_alive() for t in threads)
+          and all(r is not None for r in rows),
+          f"{FD_REQUESTS} requests from {FD_CLIENTS} clients answered")
+    flushes = stats["flushes"]
+    alone = [decode_window(w[None])[0] for w in windows]
+    got, want = np.stack(rows), np.stack(alone)
+    rel = [float(np.linalg.norm(g - w) / np.linalg.norm(w))
+           for g, w in zip(got, want)]
+    agree = float(np.mean(got.argmax(-1) == want.argmax(-1)))
+    lat_ms = np.array(lat) * 1e3
+    rec = {"arch": cfg.name, "requests": FD_REQUESTS, "clients": FD_CLIENTS,
+           "window_tokens": FD_WINDOW, "flushes": flushes,
+           "rows_per_flush": FD_REQUESTS / max(flushes, 1),
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)), "wall_s": wall,
+           "requests_per_s": FD_REQUESTS / wall, "launches": launches,
+           "flash_launches_per_flush":
+               launches["flash_attention_fwd"] / max(flushes, 1),
+           "max_row_rel_err": max(rel), "rel_tol": FD_REL_TOL,
+           "argmax_agree": agree, "argmax_min": ARGMAX_AGREE_MIN}
+    print("  frontdoor " + json.dumps(rec), flush=True)
+    check(bool(np.isfinite(got).all())
+          and got.shape == (FD_REQUESTS, cfg.vocab_padded),
+          f"rows finite, ({FD_REQUESTS}, {cfg.vocab_padded})")
+    check(flushes >= 2 and launches["flash_attention_fwd"]
+          == cfg.n_layers * flushes and launches["selective_scan_fwd"] == 0,
+          f"flash_attention_fwd launches {launches['flash_attention_fwd']} "
+          f"= {cfg.n_layers} layers x {flushes} flushes; no scan")
+    check(max(rel) <= FD_REL_TOL,
+          f"every row against its window alone: rel err {max(rel):.3e} <= "
+          f"{FD_REL_TOL}")
+    check(agree >= ARGMAX_AGREE_MIN,
+          f"argmax agreement {agree:.3f} >= {ARGMAX_AGREE_MIN}")
+    del dev_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -670,6 +1010,16 @@ def main() -> int:
                         "selective_scan_fwd")
     timed("phase 4b", phase_model_parity, "4b", mcfg)
 
+    from repro_torch.apps.adjoint_tomography import FIG11, FIG12
+    check((FIG11.nx, FIG11.ny, FIG11.nz, FIG12.nx, FIG12.ny, FIG12.nz,
+           FIG11.nt, FIG12.nt, FIG11.n_receivers)
+          == (104, 23, 24, 208, 44, 46, 200, 200, 16),
+          "the paper's Fig 11 and Fig 12 meshes, nt=200, 16 receivers")
+    fig11 = timed("phase 5 (Fig 11)", phase_at, FIG11)
+    timed("phase 5 (Fig 12)", phase_at, FIG12)
+    timed("phase 6", phase_at_fabric, FIG11, fig11)
+    fd_launches = timed("phase 7", phase_frontdoor, cfg, run)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype", "profiler_ms",
             "host_us_per_call")
@@ -689,7 +1039,8 @@ def main() -> int:
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd.cu",
               "src/repro/kernels/flash_attention/kernel.py:71",
-              fa_launches["flash_attention_fwd"], fa, fa_long, fa["body"]),
+              fa_launches["flash_attention_fwd"]
+              + fd_launches["flash_attention_fwd"], fa, fa_long, fa["body"]),
         entry("selective_scan_fwd",
               "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
               "src/repro/kernels/mamba_scan/kernel.py:54",

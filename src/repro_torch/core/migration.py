@@ -9,7 +9,8 @@ Life-cycle for a remotable step *i* (paper's wording in quotes):
      (paper §3.4), and "code" is a per-(step, tier) cache entry holding
      the step's function, so repeat offloads move nothing at all,
   3. *i* executes on the tier's device, and the manager waits for the
-     device to finish before the step counts as done,
+     device to finish before the step counts as done — or, on a
+     fabric-backed tier, a registry or host step runs in a worker process,
   4. outputs are ``put`` on the executing tier and lazily synced — a
      downstream offloaded step reads them in place, the paper's key saving,
   5. the workflow resumes ("re-integration").
@@ -244,10 +245,10 @@ class MigrationManager:
                 return cached
         fn = step.fn
         if fn is None and step.remote_impl:
-            raise StepFailure(
-                f"step {step.name} names only remote_impl "
-                f"{step.remote_impl!r}; the fabric's step registry is not "
-                "ported yet")
+            # registry-only step: resolve the same fn the workers run so
+            # the local tier remains a valid fallback
+            from repro_torch.cloud import tasklib
+            fn = tasklib.resolve(step.remote_impl)
         if fn is None:
             raise StepFailure(f"step {step.name} has no fn or remote_impl")
         # eager execution: the cached executable is the function itself
@@ -263,9 +264,12 @@ class MigrationManager:
                 memoize: Optional[bool] = None) -> OffloadReport:
         """Run ``step`` on ``tier_name``; inputs/outputs through MDSS.
 
-        The step runs in-process on the tier's device (fabric-backed
-        tiers, which run steps in worker processes, come with the fabric
-        slice).
+        When the tier is fabric-backed (``tier.worker_pool``) and the step
+        is fabric-runnable (registry name or picklable host fn), execution
+        happens in a worker OS process and the report carries the real
+        bytes that crossed the wire; otherwise it runs in-process on the
+        tier's device (device steps always do — their point is the card,
+        not process separation).
 
         ``mdss`` selects the data view — a run's :class:`NamespacedMDSS`
         under the multi-tenant runtime, the shared base store otherwise.
@@ -406,18 +410,29 @@ class MigrationManager:
             if shsp.ctx is not None:
                 shsp.set(bytes=bytes_in)
         staged_s = time.perf_counter() - t_stage
-        # every step runs in-process here: fabric workers (the reference's
-        # remote branch) come with the fabric slice
-        fn = self._executable(step, tier_name)
-        t0 = time.perf_counter()
-        with self.tracer.span("exec", cat="exec", step=step.name,
-                              tier=tier_name, remote=False):
-            out = fn(**kwargs)
-            if step.device_step:
-                # kernels are queued asynchronously: wait for the device so
-                # the cost model and the exec span time the work itself
-                tier.synchronize()
-        dt = time.perf_counter() - t0
+        fabric = getattr(tier, "worker_pool", None)
+        if fabric is not None and fabric.can_run(step):
+            with self.tracer.span("exec", cat="exec", step=step.name,
+                                  tier=tier_name, remote=True):
+                out, dt, wire_in, wire_out, pid = self._execute_remote(
+                    step, fabric, kwargs, priority)
+            # report the worker's actual wire ingress; the MDSS staging
+            # bytes remain visible in mdss.bytes_moved
+            bytes_in = wire_in
+            remote, worker_pid, wire_bytes_out = True, pid, wire_out
+        else:
+            fn = self._executable(step, tier_name)
+            t0 = time.perf_counter()
+            with self.tracer.span("exec", cat="exec", step=step.name,
+                                  tier=tier_name, remote=False):
+                out = fn(**kwargs)
+                if step.device_step:
+                    # kernels are queued asynchronously: wait for the
+                    # device so the cost model and the exec span time the
+                    # work itself
+                    tier.synchronize()
+            dt = time.perf_counter() - t0
+            remote, worker_pid, wire_bytes_out = False, 0, 0
         if not isinstance(out, dict):
             if len(step.outputs) != 1:
                 raise StepFailure(
@@ -443,12 +458,15 @@ class MigrationManager:
                 insp.set(fenced=fenced)
         bytes_out = 0 if fenced else sum(nbytes_of(out[k])
                                          for k in step.outputs)
+        if remote and not fenced:   # a refused publish moved no output bytes
+            bytes_out = wire_bytes_out
         if not fenced:
             # a fenced run is a stale straggler — its wall time must not
             # pollute the runtime EMA the speculation trigger feeds on
             self.cost_model.stats_for(step.name).observe(tier_name, dt)
         rep = OffloadReport(step.name, tier_name, dt, bytes_in, bytes_out,
                             code_only=(stale == 0 and bool(uris)),
+                            remote=remote, worker_pid=worker_pid,
                             fenced=fenced, staged_s=staged_s)
         self.reports.append(rep)
         if len(self.reports) > self.reports_cap:
@@ -478,3 +496,24 @@ class MigrationManager:
             raise StepFailure(
                 f"step {step.name}: staging inputs on {tier_name} failed: "
                 f"{e!r}") from e
+
+    def _execute_remote(self, step: Step, fabric, kwargs, priority: int = 0):
+        """Dispatch through the fabric broker; fabric faults surface as
+        StepFailure so the executor's retry / tier-fallback logic applies."""
+        from concurrent.futures import TimeoutError as _FutTimeout
+        from repro_torch.cloud.broker import FabricError
+        try:
+            # the current (exec) span's identity rides the task frame
+            # header to the worker — its recv/exec/send phases come back
+            # in the reply and nest under this driver-side span
+            task = fabric.submit_step(step, kwargs, priority=priority,
+                                      trace_ctx=self.tracer.current_ctx())
+            out = task.result(self.remote_timeout_s)
+        except FabricError as e:
+            raise StepFailure(f"fabric: {e}") from e
+        except (TimeoutError, _FutTimeout) as e:
+            raise StepFailure(
+                f"step {step.name} timed out after {self.remote_timeout_s}s "
+                "on the fabric") from e
+        return (out, task.seconds, task.bytes_sent, task.bytes_received,
+                task.worker_pid)

@@ -1011,6 +1011,36 @@ class EmeraldRuntime:
         return self.mdss.ensure(
             [f"{self.shared_namespace}/{u}" for u in uris], tier)
 
+    def attach_fabric(self, fabric, tier_names=("cloud",)):
+        """Back ``tier_names`` with an offload fabric, swap the MDSS
+        transport for its RPCTransport, and point the fabric autoscaler
+        (when present) at this runtime's aggregate ready backlog AND the
+        store's eviction churn — residency thrash grows the pool instead
+        of grinding the same bytes back and forth."""
+        from repro_torch.cloud import attach
+        transport = attach(self.manager.tiers, fabric, tier_names,
+                           mdss=self.mdss,
+                           cost_model=self.manager.cost_model)
+        if getattr(fabric, "autoscaler", None) is not None:
+            fabric.autoscaler.backlog_fn = self.offload_backlog
+            fabric.autoscaler.churn_fn = lambda: self.mdss.eviction_bytes
+        # wire the fabric into this runtime's telemetry: the broker gets
+        # the tracer (worker-reported phases re-materialise as spans) and
+        # every fabric component registers its counters/gauges
+        self._fabric = fabric
+        broker = getattr(fabric, "broker", None)
+        if broker is not None:
+            broker.tracer = self.tracer
+            if hasattr(broker, "register_metrics"):
+                broker.register_metrics(self.metrics)
+        pool = getattr(fabric, "pool", None)
+        if pool is not None and hasattr(pool, "register_metrics"):
+            pool.register_metrics(self.metrics)
+        scaler = getattr(fabric, "autoscaler", None)
+        if scaler is not None and hasattr(scaler, "register_metrics"):
+            scaler.register_metrics(self.metrics)
+        return transport
+
     # ---------------------------------------------------------------- stats
     def active_runs(self) -> int:
         with self._runs_lock:

@@ -15,8 +15,16 @@ The port of ``repro.launch.serve.Server``:
 The serving tier is the ``cloud`` tier: one H100 (``cuda:0``) unless the
 caller names another device (``device="cpu"`` in the tests). Params and
 fresh caches are handed in on the ``local`` tier (the host) and MDSS
-ships them to the card. ``FrontDoor`` (request coalescing) comes with
-``core/batching`` in a later slice.
+ships them to the card.
+
+:class:`FrontDoor` is the many-tenant entry point on top: concurrent
+single-request ``decode()`` calls from independent client threads
+coalesce (``repro_torch.core.batching.BatchCoalescer``) into ONE fused
+interactive dispatch per flush window — per-task scheduling overhead is
+paid once per batch, per-request deadlines can force an early flush, and
+each participant is charged 1/k of the fused cost. The fused step is
+host-in, host-out: numpy token rows go in, numpy rows come back, and the
+decode function decides where it computes (the card, for a model).
 
 CLI (a full config on the card, random weights from a seed, drawn on
 the card and kept on the host; or its tiny test config on the host):
@@ -181,6 +189,71 @@ class Server:
                 "decode_code_only": sum(1 for e in offloads
                                         if e.info.get("code_only")),
                 "bytes_moved": dict(self.mdss.bytes_moved)}
+
+
+class FrontDoor:
+    """Coalescing decode entry point over one shared runtime.
+
+    ``decode_fn(stacked_tokens)`` must be a *batched, row-independent*
+    decode, host in and host out: it receives the (k, ...) numpy stack of
+    k concurrent requests' inputs and returns a numpy array whose row i
+    is request i's output (a decode on the card copies its result back) —
+    that row-independence is what makes cross-tenant fusion safe (see
+    ``core/batching``). Each flush becomes ONE interactive-priority
+    submission through the runtime, so k tenants' decodes pay one
+    partition/validate/dispatch round trip instead of k.
+
+    Client threads call ``decode(tokens, deadline_s=...)`` and block on
+    the returned ticket; a request's deadline can flush the bucket
+    early, and ``slo_ms`` arms the runtime's preemption guard for the
+    fused runs themselves.
+    """
+
+    def __init__(self, runtime: EmeraldRuntime, decode_fn, *,
+                 window_s: float = 0.004, max_batch: int = 32,
+                 policy: str = "annotate", remotable: bool = False,
+                 slo_ms: Optional[float] = None, name: str = "frontdoor"):
+        from repro_torch.core.batching import BatchCoalescer
+        self.runtime = runtime
+        self.slo_ms = slo_ms
+        self._fp = getattr(decode_fn, "__name__", "decode")
+
+        def fused_decode_fn(tokens):
+            return {"logits": decode_fn(tokens)}
+
+        wf = Workflow(f"{name}-fused-decode")
+        wf.var("tokens")
+        wf.step("decode", fused_decode_fn, inputs=("tokens",),
+                outputs=("logits",), remotable=remotable, device_step=False,
+                slo_ms=slo_ms)
+        self._ex = EmeraldExecutor(partition(wf), runtime.manager,
+                                   policy=policy, runtime=runtime)
+        self.coalescer = BatchCoalescer(
+            self._fuse, window_s=window_s, max_batch=max_batch,
+            metrics=runtime.metrics, tracer=runtime.tracer, name=name)
+        runtime.attach_coalescer(self.coalescer)
+
+    def _fuse(self, key, stacked: np.ndarray, k: int) -> np.ndarray:
+        out = self._ex.submit({"tokens": stacked}, fetch=("logits",),
+                              priority=INTERACTIVE).result()
+        return np.asarray(out["logits"])
+
+    # ------------------------------------------------------------------ api
+    def decode(self, tokens, *, deadline_s: Optional[float] = None,
+               charge=None):
+        """Join the current batch for this (code, shape, dtype) bucket;
+        returns a ticket — ``ticket.result()`` is this request's logits
+        row. Requests with different shapes/dtypes never fuse."""
+        arr = np.asarray(tokens)
+        key = (self._fp, arr.shape, str(arr.dtype))
+        return self.coalescer.submit(key, arr, deadline_s=deadline_s,
+                                     charge=charge)
+
+    def stats(self) -> dict:
+        return self.coalescer.introspect()
+
+    def close(self):
+        self.coalescer.close()
 
 
 def main():

@@ -44,3 +44,33 @@ def test_sources_import_no_jax_and_no_reference():
     bad = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
+
+
+_WORKER_WITHOUT_TORCH = r"""
+import sys
+sys.modules["torch"] = None        # any `import torch` now raises
+import numpy as np
+import repro_torch.cloud.worker
+from repro_torch.cloud import tasklib
+from repro_torch.cloud.wire import BF16Bits, decode, encode
+out = decode(encode(tasklib.resolve("add_one")(x=np.float64(1.0))))
+assert float(out["y"]) == 2.0
+bits = np.arange(6, dtype=np.int16).view(BF16Bits)
+back = decode(encode({"b": bits}))["b"]
+assert isinstance(back, BF16Bits) and (back == bits).all()
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and (m == "torch" or m.startswith("torch.")))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_worker_side_imports_without_torch():
+    """What a fabric worker loads (``worker``, ``tasklib`` and the wire
+    format) imports no torch, runs a registry step and carries a bfloat16
+    buffer through as its tagged 16-bit pattern."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _WORKER_WITHOUT_TORCH],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
