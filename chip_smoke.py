@@ -50,7 +50,29 @@ each phase's wall time printed:
   7. ``FrontDoor`` in front of tinyllama-1.1b (full config, bf16) on the
      card: 16 client threads, 64 requests of a 128-token window each,
      coalesced into fused forwards that launch the flash kernel once per
-     layer; every row held against its window run alone.
+     layer; every row held against its window run alone;
+  8. train tinyllama-1.1b at its full config through
+     ``repro_torch.launch.train.Trainer`` (an Emerald workflow whose
+     ``train_step`` is offloaded to the card): 2048 tokens x 4 sequences,
+     remat "full", 2 microbatches, AdamW with f32 state, 3 steps (a
+     warm-up, a timed step and a timed step under torch.profiler); flash
+     attention launches 22 layers x 2 (forward, recompute) x 2
+     microbatches per step, all on the tma body; after the first step only
+     the batch crosses to the card; s/step, tokens/s, ship/exec/install
+     per step, peak device bytes and the device's idle share;
+  8b. the same for falcon-mamba-7b at full width (d_model 4096, d_inner
+     8192, N 16, bf16) and 8 of its 64 layers (the whole model with AdamW
+     f32 state needs ~87 GB), 1024 tokens x 2: the selective scan launches
+     8 x 2 per step;
+  9. one train step of each arch at 2 layers, full width, f32, from one
+     param tree, on the card (f32 kernel bodies) against the CPU (plain
+     versions): loss rtol 1e-4, grad_norm rtol 1e-3, every updated leaf
+     within 2 lr_1.
+
+Phase 2 also holds each kernel at the train shapes (flash B=2, S=2048,
+H=32, KV=4, d=64; the scan Bt=2, L=1024, di=8192, N=16; bf16), forward
+against its plain version and the ``autograd.Function``'s backward on the
+card against the same Function's on the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +82,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,6 +113,15 @@ FD_REQUESTS, FD_CLIENTS, FD_WINDOW = 64, 16, 128
 # FrontDoor rows (bf16 logits, batched) against the same window alone:
 # the bf16 bounds PERF.md uses card against CPU
 FD_REL_TOL = 2e-2
+TRAIN_STEPS = 3         # a warm-up, a timed step, a timed profiled step
+MAMBA_TRAIN_LAYERS = 8  # of 64: the whole 7.3 B model with AdamW f32 state
+#                         needs ~87 GB for params, grads and state
+FRAMING_MAX = 64 * 1024  # bytes beside the batch a later step may ship up
+# one f32 train step card vs CPU: the loss sums ~1e5 f32 terms in another
+# order; grad_norm sums the squares of ~1e8-1e9 gradient entries, each a
+# long f32 reduction; an AdamW first step moves a leaf by lr_1 times ~1, so
+# a sign flip of a near-zero gradient moves it by at most 2 lr_1
+STEP_LOSS_RTOL, STEP_GNORM_RTOL = 1e-4, 1e-3
 
 
 class CheckFailed(RuntimeError):
@@ -242,7 +274,57 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
     return rec
 
 
-def phase_flash(serve_shape):
+def grads_agree(card, cpu, tol):
+    """(max abs err, ok): every cotangent finite and within ``tol``
+    relative and ``tol`` times the CPU's scale (its rms, at least 1)
+    absolute. A gradient is a sum of terms as large as the gradient
+    itself, so f32 sums in another order round relative to that scale,
+    not to an element that cancels to near zero."""
+    import torch
+    err = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+    ok = all(bool(torch.isfinite(a).all()) and torch.allclose(
+        a, b, atol=tol * max(1.0, float(b.square().mean().sqrt())),
+        rtol=tol) for a, b in zip(card, cpu))
+    return err, ok
+
+
+def backward_check(fn, host, cot, tol):
+    """An ``autograd.Function``'s input cotangents on the card against the
+    same Function's on the CPU, from the same host inputs ``host`` and
+    output cotangents ``cot`` (``grads_agree`` at ``tol``); and the card's
+    forward+backward time (CUDA events)."""
+    import torch
+
+    def grads(device):
+        args = [t.to(device).requires_grad_() for t in host]
+        out = fn(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(outs, args, [c.to(device) for c in cot])
+    card = [t.float().cpu() for t in grads("cuda")]
+    cpu = [t.float() for t in grads("cpu")]
+    err, ok = grads_agree(card, cpu, tol)
+    return {"bwd_max_abs_err": err, "bwd_tol": tol, "bwd_ok": ok,
+            "fwd_bwd_ms": cuda_ms(lambda: grads("cuda"), iters=3,
+                                  warmup=1)}
+
+
+def fa_backward(B, S, H, KV, D, dtype_name, causal=True):
+    """``backward_check`` of the flash Function at one shape: kernel
+    forward and the plain version's VJP on the card, plain forward and
+    VJP on the CPU, in the same dtype and the forward's tolerance."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(S + H + 7)
+    host = [torch.randn(s, generator=g).to(dt) for s in
+            ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+    cot = [torch.randn((B, S, H, D), generator=g).to(dt)]
+    return backward_check(lambda q, k, v: ops.flash_attention(
+        q, k, v, scale=D ** -0.5, causal=causal), host, cot,
+        TOL[dtype_name])
+
+
+def phase_flash(serve_shape, train_shape):
     import torch
     cases = []
     # the reference's sweep (tests/test_kernels.py)
@@ -276,19 +358,34 @@ def phase_flash(serve_shape):
     long_rec = fa_case(**dict(serve, S=LONG_PROMPT))
     print("  flash_attention_fwd (full prompt) " + json.dumps(long_rec),
           flush=True)
+    B, S, H, KV, D = train_shape
+    train_rec = fa_case(B=B, S=S, H=H, KV=KV, dq=D, dv=D,
+                        dtype_name="bfloat16", causal=True, profiled=True)
+    train_rec.update(fa_backward(B, S, H, KV, D, "bfloat16"))
+    print("  flash_attention_fwd (train shape, with the Function's "
+          "backward) " + json.dumps(train_rec), flush=True)
+    bwd = [fa_backward(1, 256, 8, 2, 128, dt) for dt in ("float32",
+                                                          "bfloat16")]
+    print("  flash_attention backward (sweep case, f32 and bf16) "
+          + json.dumps(bwd), flush=True)
     torch.cuda.synchronize()
-    every = recs + [slice_rec, mma_rec, long_rec]
+    every = recs + [slice_rec, mma_rec, long_rec, train_rec]
     bad = [r for r in every if not r["ok"]]
     check(not bad, f"flash_attention_fwd agrees with attention_ref on "
           f"{len(every)} cases (f32 2e-5, bf16 2e-2)"
           + (f"; failing: {bad}" if bad else ""))
-    check(slice_rec["body"] == long_rec["body"] == "tma"
+    bad = [r for r in [train_rec] + bwd if not r["bwd_ok"]]
+    check(not bad, "the flash Function's backward on the card agrees with "
+          "the CPU's (train shape bf16; a sweep case f32 and bf16)"
+          + (f"; failing: {bad}" if bad else ""))
+    check(slice_rec["body"] == long_rec["body"] == train_rec["body"]
+          == "tma"
           and all(r["body"] == ("f32" if r["dtype"] == "float32" else "tma")
                   for r in recs),
           "every bf16 case ran the tma body, every f32 case the f32 body")
     slice_rec["mma_body"] = {k: mma_rec[k] for k in (
         "ms", "profiler_ms", "host_us_per_call", "max_abs_err")}
-    return slice_rec, long_rec
+    return slice_rec, long_rec, train_rec
 
 
 # ------------------------------------------------------------- selective scan
@@ -357,7 +454,29 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
     return rec
 
 
-def phase_scan(serve_shape, dt_rank):
+def ss_backward(Bt, L, di, N, dtype_name):
+    """``backward_check`` of the selective-scan Functions at one shape:
+    kernel forward and closed-form backward at f32 on the card, the
+    closed-form path at f32 on the CPU, from the same inputs (x, B, C in
+    the dtype) and the forward's tolerance."""
+    import torch
+    from repro_torch.kernels.mamba_scan import ops
+    dt_ = getattr(torch, dtype_name)
+    g = torch.Generator().manual_seed(L + di + 7)
+    host = [torch.randn((Bt, L, di), generator=g).to(dt_),
+            torch.empty((Bt, L, di)).uniform_(1e-3, 0.1, generator=g),
+            -torch.empty((di, N)).uniform_(0.5, 2.0, generator=g),
+            torch.randn((Bt, L, N), generator=g).to(dt_),
+            torch.randn((Bt, L, N), generator=g).to(dt_),
+            torch.randn((di,), generator=g),
+            torch.randn((Bt, di, N), generator=g)]
+    cot = [torch.randn((Bt, L, di), generator=g).to(dt_),
+           torch.randn((Bt, di, N), generator=g)]
+    return backward_check(lambda *a: ops.selective_scan(*a, chunk=512),
+                          host, cot, TOL[dtype_name])
+
+
+def phase_scan(serve_shape, train_shape, dt_rank):
     import torch
     recs = []
     for (Bt, L, di, N) in [(1, 64, 32, 8), (2, 128, 64, 16),
@@ -376,23 +495,37 @@ def phase_scan(serve_shape, dt_rank):
                        proj_width=dt_rank + 2 * N, timed=True)
     print("  selective_scan_fwd (full prompt) " + json.dumps(long_rec),
           flush=True)
+    Bt, L, di, N = train_shape
+    train_rec = ss_case(Bt, L, di, N, "bfloat16",
+                        proj_width=dt_rank + 2 * N, timed=True)
+    train_rec.update(ss_backward(Bt, L, di, N, "bfloat16"))
+    print("  selective_scan_fwd (train shape, with the Function's "
+          "backward) " + json.dumps(train_rec), flush=True)
+    bwd = [ss_backward(2, 128, 64, 16, dt) for dt in ("float32",
+                                                      "bfloat16")]
+    print("  selective_scan backward (sweep case, f32 and bf16) "
+          + json.dumps(bwd), flush=True)
     torch.cuda.synchronize()
-    every = recs + [slice_rec, long_rec]
+    every = recs + [slice_rec, long_rec, train_rec]
     bad = [r for r in every if not r["ok"]]
     check(not bad, f"selective_scan_fwd agrees with selective_scan_ref on "
           f"{len(every)} cases (y f32 2e-5, bf16 2e-2; h_last 2e-4)"
           + (f"; failing: {bad}" if bad else ""))
-    return slice_rec, long_rec
+    bad = [r for r in [train_rec] + bwd if not r["bwd_ok"]]
+    check(not bad, "the scan Function's backward on the card agrees with "
+          "the CPU's (train shape bf16; a sweep case f32 and bf16)"
+          + (f"; failing: {bad}" if bad else ""))
+    return slice_rec, long_rec, train_rec
 
 
-def phase_kernels(fa_shape, ss_shape, dt_rank):
+def phase_kernels(fa_shapes, ss_shapes, dt_rank):
     print("== phase 2: kernels against their plain versions on the card",
           flush=True)
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fa = phase_flash(fa_shape)
-    ss = phase_scan(ss_shape, dt_rank)
+    fa = phase_flash(*fa_shapes)
+    ss = phase_scan(*ss_shapes, dt_rank)
     torch.cuda.empty_cache()
     return fa, ss
 
@@ -956,6 +1089,212 @@ def phase_frontdoor(cfg, run):
     return launches
 
 
+# ---------------------------------------------------------------------- train
+def train_run(arch, seq, batch, n_layers=None, grad_accum=1):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeProfile
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, RunConfig(model=cfg, shape=ShapeProfile("train", seq, batch,
+                                                        "train"),
+                          remat="full", grad_accum=grad_accum,
+                          optimizer="adamw", opt_state_dtype="float32")
+
+
+def device_seconds(prof):
+    """(kernel s, copy s) summed over the device events of a profile."""
+    from torch.autograd import DeviceType
+    kern = copy = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", 0.0)
+        if e.key.startswith(("Memcpy", "Memset")):
+            copy += us / 1e6
+        else:
+            kern += us / 1e6
+    return kern, copy
+
+
+def phase_train(label, cfg, run, path_kernel, per_step):
+    """Train ``run`` through the port's Trainer on the card for
+    TRAIN_STEPS steps (the last under torch.profiler); checks the kernel
+    launches per step, the offloads and the bytes each step ships up.
+    Returns the launches of the whole run."""
+    print(f"== phase {label}: train {cfg.name} ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}) through the Trainer on the card",
+          flush=True)
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.train import Trainer
+    counters = kernel_counters()
+    fa_bodies = counters["flash_attention_fwd"].launches_by_body
+    tr = Trainer(run, policy="annotate")
+    check(tr.tiers["cloud"].device.type == "cuda", "cloud tier on the card")
+    sp = run.shape
+    batch_bytes = sum(v.nbytes for v in tr.data.batch(0).values())
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for mod in counters.values():
+        mod.launches = 0
+    for body in fa_bodies:
+        fa_bodies[body] = 0
+    try:
+        for i in range(TRAIN_STEPS):
+            n_spans = len(tr.runtime.tracer.spans())
+            up0 = tr.mdss.bytes_moved.get(("local", "cloud"), 0)
+            l0 = {n: mod.launches for n, mod in counters.items()}
+            profiled = i == TRAIN_STEPS - 1
+            prof = (profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                    if profiled else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                tr.fit(1, log_every=0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            spans = [x for x in tr.runtime.tracer.spans()[n_spans:]
+                     if x.attrs.get("step") == "train_step"]
+            rec = {"step": i, "wall_s": wall, "profiled": profiled,
+                   "up_bytes": tr.mdss.bytes_moved.get(("local", "cloud"), 0)
+                   - up0,
+                   "launches": {n: mod.launches - l0[n]
+                                for n, mod in counters.items()},
+                   **{f"{n}_s": sum(x.dur_s for x in spans if x.name == n)
+                      for n in ("ship", "exec", "install")},
+                   "loss": tr.history[-1]["loss"],
+                   "grad_norm": tr.history[-1]["grad_norm"]}
+            if profiled:
+                kern, copy = device_seconds(prof)
+                rec.update(device_kernel_s=kern, device_copy_s=copy,
+                           idle_share=1 - (kern + copy) / wall,
+                           compute_idle_share=1 - kern / wall)
+            steps.append(rec)
+            print(f"  step {json.dumps(rec)}", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: mod.launches for n, mod in counters.items()}
+        by_body = dict(fa_bodies)
+        rep = tr.transfer_report()
+        state_bytes = sum(x.nbytes for x in tree_leaves(
+            (tr.mdss.peek_latest("params")[0],
+             tr.mdss.peek_latest("opt_state")[0])))
+        ships = [(u, a, b) for u, a, b, _ in tr.mdss.sync_events
+                 if u in ("params", "opt_state")]
+    finally:
+        tr.close()
+    timed_s = steps[1]["wall_s"]
+    tokens = sp.global_batch * sp.seq_len
+    stats = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "seq": sp.seq_len, "batch": sp.global_batch,
+        "grad_accum": run.grad_accum, "remat": run.remat,
+        "s_per_step": timed_s, "tokens_per_s": tokens / timed_s,
+        "profiled_step_s": steps[-1]["wall_s"],
+        "profiler_cost_s": steps[-1]["wall_s"] - timed_s,
+        "idle_share": steps[-1]["idle_share"],
+        "compute_idle_share": steps[-1]["compute_idle_share"],
+        "peak_device_bytes": peak, "params_and_opt_state_bytes": state_bytes,
+        "batch_bytes": batch_bytes, "state_ships": ships,
+        "offloads": rep["offloads"],
+        "code_only": rep["code_only"],
+        "bytes_moved": {f"{a}->{b}": n
+                        for (a, b), n in rep["bytes_moved"].items()},
+        "launches": launches, "flash_launches_by_body": by_body}
+    print("  train " + json.dumps(stats), flush=True)
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in steps),
+          f"loss and grad_norm finite: {[r['loss'] for r in steps]}, "
+          f"{[r['grad_norm'] for r in steps]}")
+    for name in counters:
+        want = per_step if name == path_kernel else 0
+        check(all(r["launches"][name] == want for r in steps),
+              f"{name} launches {[r['launches'][name] for r in steps]} = "
+              f"{want} per step")
+    if path_kernel == "flash_attention_fwd":
+        check(by_body == {"f32": 0, "mma": 0, "tma": launches[path_kernel]},
+              f"flash_attention_fwd launches by body {by_body}: every one "
+              f"on the tma body")
+    check(rep["offloads"] == TRAIN_STEPS,
+          f"{rep['offloads']} offloads of train_step")
+    check(sorted(ships) == [("opt_state", "local", "cloud"),
+                            ("params", "local", "cloud")],
+          f"params and optimizer state shipped to the card once, in the "
+          f"first step ({steps[0]['up_bytes']} B up; {state_bytes} B of "
+          f"state, less what MDSS's chunk dedup found identical): {ships}")
+    check(all(batch_bytes <= r["up_bytes"] <= batch_bytes + FRAMING_MAX
+              for r in steps[1:]),
+          f"later steps shipped only the batch ({batch_bytes} B, + <= "
+          f"{FRAMING_MAX} B): {[r['up_bytes'] for r in steps[1:]]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_parity(label, arch):
+    """One f32 train step at 2 layers, full width, card vs CPU."""
+    print(f"== phase {label}: one train step of {arch} at 2 layers, full "
+          f"width, f32: card (kernels) vs CPU (plain)", flush=True)
+    import torch
+    from repro_torch._tree import to_device, tree_leaves
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import Model
+    cfg, run = train_run(arch, 128, 2, n_layers=2)
+    cfg = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
+    run = run.with_(model=cfg)
+    model = Model(run)
+    params, _ = init_on_card(model, seed=3)
+    opt = model.opt_init(params)
+    batch = SyntheticLMData(cfg, run.shape, seed=3).batch(0)
+    counters = kernel_counters()
+    fa_bodies = counters["flash_attention_fwd"].launches_by_body
+    for mod in counters.values():
+        mod.launches = 0
+    for body in fa_bodies:
+        fa_bodies[body] = 0
+    t = time.perf_counter()
+    pc, oc, mc = model.train_step(to_device(params, "cuda"),
+                                  to_device(opt, "cuda"),
+                                  to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches = {n: mod.launches for n, mod in counters.items()}
+    by_body = dict(fa_bodies)
+    t = time.perf_counter()
+    ph, oh, mh = model.train_step(params, opt, batch)
+    cpu_s = time.perf_counter() - t
+    lr1 = float(mh["lr"])
+    leaf_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+           for k in ("loss", "grad_norm")}
+    rec = {"arch": arch, "card": {k: float(v) for k, v in mc.items()},
+           "cpu": {k: float(v) for k, v in mh.items()}, "rel_diff": rel,
+           "max_leaf_abs_diff": leaf_err, "two_lr1": 2 * lr1,
+           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+           "flash_launches_by_body": by_body}
+    print("  train_parity " + json.dumps(rec), flush=True)
+    check(rel["loss"] <= STEP_LOSS_RTOL,
+          f"loss rel diff {rel['loss']:.3e} <= {STEP_LOSS_RTOL}")
+    check(rel["grad_norm"] <= STEP_GNORM_RTOL,
+          f"grad_norm rel diff {rel['grad_norm']:.3e} <= {STEP_GNORM_RTOL}")
+    check(leaf_err <= 2 * lr1,
+          f"every updated leaf within 2 lr_1: {leaf_err:.3e} <= "
+          f"{2 * lr1:.3e}")
+    kern = ("flash_attention_fwd" if cfg.family != "ssm"
+            else "selective_scan_fwd")
+    check(launches[kern] == 2 * 2 and sum(launches.values()) == 4,
+          f"the card side launched {kern} 2 layers x 2 (forward, "
+          f"recompute): {launches}")
+    if kern == "flash_attention_fwd":
+        check(by_body["f32"] == 4, f"on the f32 body: {by_body}")
+    del pc, oc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -996,8 +1335,16 @@ def main() -> int:
     mreqs = make_requests(mcfg, n=4, seed=1)
     ss_shape = (mrun.shape.global_batch, packed_len(mrun, mreqs),
                 mcfg.d_inner, mcfg.ssm_state)
-    (fa, fa_long), (ss, ss_long) = timed("phase 2", phase_kernels, fa_shape,
-                                         ss_shape, mcfg.dt_rank_)
+    tcfg, trun = train_run("tinyllama-1.1b", 2048, 4, grad_accum=2)
+    fa_train = (trun.shape.global_batch // trun.grad_accum,
+                trun.shape.seq_len, tcfg.n_heads, tcfg.kv_heads, tcfg.hdim)
+    tmcfg, tmrun = train_run("falcon-mamba-7b", 1024, 2,
+                             n_layers=MAMBA_TRAIN_LAYERS)
+    ss_train = (tmrun.shape.global_batch, tmrun.shape.seq_len,
+                tmcfg.d_inner, tmcfg.ssm_state)
+    (fa, fa_long, fa_tr), (ss, ss_long, ss_tr) = timed(
+        "phase 2", phase_kernels, (fa_shape, fa_train), (ss_shape, ss_train),
+        mcfg.dt_rank_)
 
     check(cfg.n_layers == 22 and cfg.d_model == 2048
           and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
@@ -1020,31 +1367,56 @@ def main() -> int:
     timed("phase 6", phase_at_fabric, FIG11, fig11)
     fd_launches = timed("phase 7", phase_frontdoor, cfg, run)
 
+    check(tcfg.n_layers == 22 and tcfg.d_model == 2048
+          and tcfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
+    fa_train_launches = timed(
+        "phase 8", phase_train, "8", tcfg, trun, "flash_attention_fwd",
+        tcfg.n_layers * 2 * trun.grad_accum)
+    check(tmcfg.d_model == 4096 and tmcfg.d_inner == 8192
+          and tmcfg.ssm_state == 16 and tmcfg.param_dtype == "bfloat16",
+          f"falcon-mamba-7b at full width, {MAMBA_TRAIN_LAYERS} of 64 "
+          f"layers (the whole model with AdamW f32 state needs ~87 GB, "
+          f"more than the card's 80 GB)")
+    ss_train_launches = timed(
+        "phase 8b", phase_train, "8b", tmcfg, tmrun, "selective_scan_fwd",
+        tmcfg.n_layers * 2 * tmrun.grad_accum)
+    timed("phase 9 (tinyllama)", phase_train_parity, "9", "tinyllama-1.1b")
+    timed("phase 9 (falcon-mamba)", phase_train_parity, "9",
+          "falcon-mamba-7b")
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype", "profiler_ms",
             "host_us_per_call")
+    bwd_keys = ("bwd_max_abs_err", "bwd_tol", "fwd_bwd_ms")
 
-    def entry(name, source, replaces, launches, rec, long_rec, body):
+    def entry(name, source, replaces, by_path, rec, long_rec, train_rec,
+              body):
+        def at(r, extra=()):
+            return {**{k: r[k] for k in keys + ("share_of_bound",) + extra},
+                    "library_profiler_ms": r.get("library_profiler_ms")}
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches, "body": body,
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, "body": body,
                 **{k: rec[k] for k in keys},
                 "library_profiler_ms": rec.get("library_profiler_ms"),
-                "long_shape": {
-                    **{k: long_rec[k] for k in keys + ("share_of_bound",)},
-                    "library_profiler_ms": long_rec.get(
-                        "library_profiler_ms")}}
+                "long_shape": at(long_rec),
+                "train_shape": at(train_rec, bwd_keys)}
 
     record = {"kernels": [
         entry("flash_attention_fwd",
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd.cu",
               "src/repro/kernels/flash_attention/kernel.py:71",
-              fa_launches["flash_attention_fwd"]
-              + fd_launches["flash_attention_fwd"], fa, fa_long, fa["body"]),
+              {"serve": fa_launches["flash_attention_fwd"],
+               "frontdoor": fd_launches["flash_attention_fwd"],
+               "train": fa_train_launches["flash_attention_fwd"]},
+              fa, fa_long, fa_tr, fa["body"]),
         entry("selective_scan_fwd",
               "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
               "src/repro/kernels/mamba_scan/kernel.py:54",
-              ss_launches["selective_scan_fwd"], ss, ss_long,
+              {"serve": ss_launches["selective_scan_fwd"],
+               "train": ss_train_launches["selective_scan_fwd"]},
+              ss, ss_long, ss_tr,
               f"ss_fwd_kernel (bf16: state columns split over "
               f"{counters['selective_scan_fwd'].lanes(torch.bfloat16)} "
               f"lanes)")]}

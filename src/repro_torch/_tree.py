@@ -46,6 +46,33 @@ def tree_leaves(tree: Any) -> List[Any]:
     return out
 
 
+def leaves_up_to(prefix: Any, tree: Any) -> List[Any]:
+    """The subtrees of ``tree`` found where ``prefix`` has a leaf, in
+    ``tree_leaves(prefix)`` order (``tree`` extends ``prefix``'s
+    structure)."""
+    out: List[Any] = []
+
+    def walk(p, t):
+        if isinstance(p, dict):
+            for k, v in p.items():
+                walk(v, t[k])
+        elif isinstance(p, (list, tuple)):
+            for v, w in zip(p, t):
+                walk(v, w)
+        else:
+            out.append(t)
+
+    walk(prefix, tree)
+    return out
+
+
+def unflatten_like(template: Any, leaves) -> Any:
+    """``template``'s structure with its leaves replaced, in order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
 def to_device(tree: Any, device) -> Any:
     """Move every tensor leaf to ``device``; a tensor already there is
     returned as is. Other leaves are left alone."""

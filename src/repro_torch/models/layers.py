@@ -93,3 +93,18 @@ def embed(cfg: ModelConfig, p, tokens):
 def lm_logits(cfg: ModelConfig, p, x):
     w = p["embedding"].T if cfg.tie_embeddings else p["lm_head"]
     return (x @ w).float()
+
+
+def xent_loss(cfg: ModelConfig, logits, labels, mask=None):
+    """Cross-entropy with padded-vocab masking; logits f32 (..., vocab_padded)."""
+    vp, v = cfg.vocab_padded, cfg.vocab_size
+    if vp != v:
+        pad = torch.arange(vp, device=logits.device) >= v
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(nll.dtype)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -5,10 +5,13 @@ into *stages* ``(pattern, repeats)`` and each stage's parameters are
 stacked along a leading ``repeats`` axis, exactly as in
 ``repro.models.transformer``, so the param and cache trees keep the
 reference's keys and shapes. Where the reference runs a stage under
-``lax.scan``, the port loops over the repeats in Python and indexes the
-stacked weights.
+``lax.scan``, the port loops over the repeats in Python over views of the
+stacked weights (``torch.unbind``: under autograd, one unbind per leaf
+stacks the repeats' gradients once, where indexing each repeat would
+give every repeat's backward a zero tensor of the whole stacked leaf).
 
 Modes:
+  * ``full``    — train forward over a whole sequence (no cache),
   * ``prefill`` — full forward that also fills decode caches,
   * ``decode``  — one token against caches.
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _tree
 from repro_torch.configs.base import (ATTN_DENSE, MAMBA_ONLY, ModelConfig,
@@ -29,7 +33,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.layers import (embed, embed_template, lm_logits, mlp,
-                                       mlp_template, rmsnorm, rmsnorm_template)
+                                       mlp_template, rmsnorm, rmsnorm_template,
+                                       xent_loss)
 from repro_torch.models.params import stack_specs
 
 _PORTED_BLOCKS = (ATTN_DENSE, MAMBA_ONLY)
@@ -110,31 +115,77 @@ def _stack(trees):
     return _tree.tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _repeats(tree, reps: int):
+    """The ``reps`` per-repeat views of a stacked tree (one ``unbind`` per
+    leaf)."""
+    if tree is None:
+        return [None] * reps
+    per_leaf = [torch.unbind(a) for a in _tree.tree_leaves(tree)]
+    return [_tree.unflatten_like(tree, [u[r] for u in per_leaf])
+            for r in range(reps)]
+
+
+def _remat(run: RunConfig, fn):
+    """Recompute ``fn`` (one repeat's body) in the backward instead of
+    saving its activations, as the reference's ``jax.checkpoint``.
+    ``"dots_saveable"`` recomputes the whole body too: torch's checkpoint
+    has no policy that keeps the matrix products' outputs."""
+    if run.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def run_stages(cfg, run, params, x, *, mode, caches=None, pos=None):
     """Run every stage. Returns (x, new_caches)."""
     new_caches = {} if caches is not None else None
     for si, (pattern, reps) in enumerate(cfg.stages()):
         key = f"stage_{si}"
-        sp = params[key]
         c_in = caches.get(key) if caches is not None else None
-        c_out = {f"pos_{j}": [] for j in range(len(pattern))}
-        for r in range(reps):
-            for j, bt in enumerate(pattern):
-                pj = _tree.tree_map(lambda a: a[r], sp[f"pos_{j}"])
-                cj = None if c_in is None else \
-                    _tree.tree_map(lambda a: a[r], c_in[f"pos_{j}"])
-                x, cj = block_apply(cfg, run, bt, pj, x, mode=mode, cache=cj,
-                                    pos=pos)
-                if cj is not None:
-                    c_out[f"pos_{j}"].append(cj)
+
+        def body(xx, lp, lc, _pattern=pattern):
+            c_out = {}
+            for j, bt in enumerate(_pattern):
+                cj = None if lc is None else lc[f"pos_{j}"]
+                xx, c_out[f"pos_{j}"] = block_apply(
+                    cfg, run, bt, lp[f"pos_{j}"], xx, mode=mode, cache=cj,
+                    pos=pos)
+            return xx, c_out
+
+        body = _remat(run, body) if mode == "full" else body
+        c_out = []
+        for lp, lc in zip(_repeats(params[key], reps), _repeats(c_in, reps)):
+            x, cr = body(x, lp, lc)
+            c_out.append(cr)
         if new_caches is not None:
-            new_caches[key] = {k: _stack(v) for k, v in c_out.items()}
+            new_caches[key] = _stack(c_out)
     return x, new_caches
 
 
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+
+def forward_train(cfg: ModelConfig, run: RunConfig, params, batch):
+    """batch: tokens (B,S), labels (B,S), optional loss_mask (B,S).
+
+    Returns (loss, metrics); the metrics' keys are the reference's
+    (``aux`` is a float32 zero: no ported block has an auxiliary loss).
+    """
+    x = embed(cfg, params["embed"], batch["tokens"])
+    x, _ = run_stages(cfg, run, params, x, mode="full")
+    x = rmsnorm(cfg, params["final_norm"], x)
+    logits = lm_logits(cfg, params["embed"], x)
+    # next-token loss
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    loss = xent_loss(cfg, logits[:, :-1], labels[:, 1:],
+                     None if mask is None else mask[:, 1:])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics = {"xent": loss, "aux": aux}
+    loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
+
 
 def forward_prefill(cfg, run, params, batch, cache):
     """Full forward filling caches; returns (last-position logits, cache)."""

@@ -218,3 +218,43 @@ def test_size_one_dims_take_dense_strides():
     q = _bf16((1, 40, 1, 64)).as_strided((1, 40, 1, 64), (3, 64, 7, 1))
     assert kernel._strides(q) == (40 * 64, 64, 64)
     assert kernel._body(q, q, q) == "tma"
+
+
+# ------------------------------------------------------------------ gradient
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (1, 2, 2, 128, 128),      # MHA
+    (2, 4, 2, 256, 128),      # GQA 2:1
+    (1, 8, 2, 128, 128),      # GQA 4:1
+    (1, 2, 1, 384, 128),      # non-pow2 block count
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_gradient_matches_reference_vjp(B, H, KV, S, D, causal):
+    """The autograd.Function's q, k, v cotangents against ``jax.vjp`` of
+    the reference's ``attention_ref`` (its ``_fa_bwd``), f32 at 2e-5; GQA's
+    k and v gradients sum over each group of q heads."""
+    import jax
+    xs = _inputs(B, S, S, H, KV, D, seed=S + H + KV)
+    g = np.random.default_rng(S).normal(size=(B, S, H, D)).astype(np.float32)
+    scale = D ** -0.5
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention_ref(
+        q, k, v, scale=scale, causal=causal), *map(jnp.asarray, xs))
+    want = vjp(jnp.asarray(g))
+    qkv = [torch.from_numpy(x).requires_grad_() for x in xs]
+    o = ops.flash_attention(*qkv, scale=scale, causal=causal)
+    got = torch.autograd.grad(o, qkv, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_gradient_above_chunk_threshold_is_the_chunked_vjp():
+    """Above ``CHUNK_THRESHOLD`` the backward recomputes the chunked plain
+    version the forward ran: its VJP, bit for bit."""
+    qkv = [t.requires_grad_() for t in
+           _torch(_inputs(1, 1100, 1100, 2, 1, 16, seed=6), "float32")]
+    g = torch.randn(1, 1100, 2, 16, generator=torch.Generator().manual_seed(0))
+    got = torch.autograd.grad(ops.flash_attention(*qkv, scale=0.25), qkv, g)
+    want = torch.autograd.grad(ref.attention_ref_chunked(*qkv, scale=0.25,
+                                                         causal=True), qkv, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -186,3 +186,88 @@ def test_selective_scan_kernel_takes_x_proj_slices():
                                rtol=2e-2)
     np.testing.assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(),
                                atol=2e-4)
+
+
+# -------------------------------------------------------------- gradients
+def _assert_grads_close(got, want, tol):
+    """Each cotangent within ``tol`` relative and ``tol`` times the
+    reference's scale (its rms, at least 1) absolute: a gradient is a sum
+    of terms as large as the gradient itself, and f32 sums in another
+    order round relative to that scale, not to an element that cancels to
+    near zero."""
+    for a, b in zip(got, want):
+        scale = max(1.0, float(b.square().mean().sqrt()))
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=tol * scale,
+                                   rtol=tol)
+
+
+def _grads(fn, inputs, cot, device, dtypes):
+    """Cotangents of ``fn``'s inputs on ``device``, the inputs cast to
+    ``dtypes`` there (None keeps float32)."""
+    ts = [t.to(device, dt or torch.float32).requires_grad_()
+          for t, dt in zip(inputs, dtypes)]
+    out = fn(*ts)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = [c.to(device, o.dtype) for c, o in zip(cot, outs)]
+    return [g.float().cpu() for g in torch.autograd.grad(outs, ts, cots)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D,causal", [
+    (1, 128, 2, 2, 128, True), (2, 256, 4, 2, 128, False),
+    (1, 128, 8, 2, 128, True), (1, 384, 2, 1, 128, False),
+    (2, 2048, 32, 4, 64, True),            # tinyllama's train shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_matches_cpu(B, S, H, KV, D, causal, dtype):
+    """The autograd.Function on the card (kernel forward, the plain
+    version's VJP backward) against the same Function on the CPU (plain
+    forward and backward), in the same dtype: f32 2e-5, bf16 2e-2 (the
+    backward's bf16 products round alike on both, up to the order of
+    their f32 sums), scaled as ``_assert_grads_close`` says."""
+    _card()
+    g = torch.Generator().manual_seed(S + H)
+    qkv = [torch.randn(s, generator=g).to(dtype).float()
+           for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D))]
+    cot = [torch.randn((B, S, H, D), generator=g)]
+
+    def fn(q, k, v):
+        return ops.flash_attention(q, k, v, scale=D ** -0.5, causal=causal)
+    before = kernel.launches
+    card = _grads(fn, qkv, cot, "cuda", [dtype] * 3)
+    assert kernel.launches == before + 1
+    host = _grads(fn, qkv, cot, "cpu", [dtype] * 3)
+    _assert_grads_close(card, host, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bt,L,di,N", [
+    (1, 64, 32, 8), (2, 128, 64, 16), (2, 96, 48, 16),   # the reference's
+    (2, 1024, 8192, 16),      # falcon-mamba-7b's train shape
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_backward_matches_cpu(Bt, L, di, N, dtype):
+    """The CUDA Function (kernel forward, closed-form backward at f32)
+    against the CPU Function (closed-form forward and backward at f32),
+    from the same inputs (x, B, C in ``dtype``): f32 2e-5; bf16 2e-2,
+    where the cotangents of x, B and C are rounded to bf16 on both;
+    scaled as ``_assert_grads_close`` says (at the train shape, f32 sums
+    of terms up to ~40 leave ~4e-5 on a few of 16.7 M elements of the
+    dt cotangent that cancel to ~5e-3)."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+    args = [t.float().cpu() for t in _scan_inputs(Bt, L, di, N, dtype,
+                                                  seed=L + di)]
+    rng = np.random.default_rng(L)
+    cot = [torch.from_numpy(rng.normal(size=(Bt, L, di)).astype(np.float32)),
+           torch.from_numpy(rng.normal(size=(Bt, di, N)).astype(np.float32))]
+    dts = [dtype, None, None, dtype, dtype, None, None]
+
+    def fn(*a):
+        return sops.selective_scan(*a, chunk=512)
+    before = sk.launches
+    card = _grads(fn, args, cot, "cuda", dts)
+    assert sk.launches == before + 1
+    host = _grads(fn, args, cot, "cpu", dts)
+    _assert_grads_close(card, host, TOL[dtype])

@@ -204,3 +204,97 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+# ------------------------------------------------------------------ gradient
+def _vjp_reference(args, g_y, g_h, chunk, scan_dtype):
+    """``jax.vjp`` of ``_cf_scan``, compiled (op by op, the associative
+    scan's VJP takes tens of seconds on the CPU) with XLA's excess
+    precision off, so that the bf16 pairs are rounded at every op, as the
+    op-by-op run rounds them (with it on, XLA keeps fused bf16
+    intermediates in f32)."""
+    import jax
+
+    def vjp(a, cot):
+        return jax.vjp(lambda *a: jops._cf_scan(*a, chunk,
+                                                jnp.dtype(scan_dtype)),
+                       *a)[1](cot)
+    a = (_jax(args, "float32"), (jnp.asarray(g_y), jnp.asarray(g_h)))
+    return jax.jit(vjp).lower(*a).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*a)
+
+
+def _cotangents(Bt, L, di, N, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(Bt, L, di)).astype(np.float32),
+            rng.normal(size=(Bt, di, N)).astype(np.float32))
+
+
+def _grads(fn, args, g_y, g_h):
+    ts = [t.requires_grad_() for t in _torch(args, "float32")]
+    y, h = fn(*ts)
+    return torch.autograd.grad((y, h), ts, (torch.from_numpy(g_y),
+                                            torch.from_numpy(g_h)))
+
+
+SWEEP = [(1, 64, 32, 8), (2, 128, 64, 16), (2, 96, 48, 16)]
+
+
+@pytest.mark.parametrize("Bt,L,di,N", SWEEP)
+@pytest.mark.parametrize("scan_dtype,tol", [("float32", 2e-5),
+                                            ("bfloat16", 2e-2)])
+def test_cpu_gradient_matches_reference_vjp(Bt, L, di, N, scan_dtype, tol):
+    """The CPU Function (closed-form forward and backward, pairs in
+    ``scan_dtype``) against ``jax.vjp`` of the reference's ``_cf_scan``
+    at the same outer chunk: the cotangents of x, dt, A, B, C, D and h0,
+    with both outputs' cotangents nonzero."""
+    args = _inputs(Bt, L, di, N, seed=L + di + 1)
+    g_y, g_h = _cotangents(Bt, L, di, N, seed=L)
+    want = _vjp_reference(args, g_y, g_h, jops._mem_chunk(16, args[0]),
+                          scan_dtype)
+    got = _grads(lambda *a: ops.selective_scan(*a, chunk=16,
+                                               scan_dtype=scan_dtype),
+                 args, g_y, g_h)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("chunk", [32, 96])
+def test_closed_form_bwd_carries_across_chunks(chunk):
+    """The reverse scan's carry across outer chunks (chunk 32 of L=96)
+    against the reference's closed-form VJP at the same chunk."""
+    args = _inputs(2, 96, 24, 8, seed=9)
+    g_y, g_h = _cotangents(2, 96, 24, 8, seed=10)
+    want = _vjp_reference(args, g_y, g_h, chunk, "float32")
+    got = _grads(lambda *a: ops._ClosedFormScan.apply(*a, chunk,
+                                                       torch.float32),
+                 args, g_y, g_h)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-5,
+                                   rtol=2e-5)
+
+
+@pytest.mark.parametrize("Bt,L,di,N", SWEEP)
+def test_kernel_function_backward_matches_reference_vjp(Bt, L, di, N,
+                                                        monkeypatch):
+    """The CUDA Function's wiring, on the CPU: its forward is the kernel
+    (here the plain version stands in for it, as the kernel runs only on
+    the card) and its backward the closed form at f32 and the outer chunk
+    ``_mem_chunk`` (the reference's ``_scan_bwd``)."""
+    calls = []
+
+    def stand_in(*a):
+        calls.append(1)
+        return ref.selective_scan_ref(*a)
+
+    monkeypatch.setattr(kernel, "selective_scan_fwd", stand_in)
+    args = _inputs(Bt, L, di, N, seed=L + di + 2)
+    g_y, g_h = _cotangents(Bt, L, di, N, seed=L + 1)
+    want = _vjp_reference(args, g_y, g_h, jops._mem_chunk(16, args[0]),
+                          "float32")
+    got = _grads(lambda *a: ops._KernelScan.apply(*a, 16), args, g_y, g_h)
+    assert calls == [1]
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-5,
+                                   rtol=2e-5)
