@@ -67,7 +67,35 @@ each phase's wall time printed:
   9. one train step of each arch at 2 layers, full width, f32, from one
      param tree, on the card (f32 kernel bodies) against the CPU (plain
      versions): loss rtol 1e-4, grad_norm rtol 1e-3, every updated leaf
-     within 2 lr_1.
+     within 2 lr_1;
+  2b. (run after phase 2) flash attention at every call of the model
+     zoo's serve and train paths (phases 10-11), built from their configs:
+     MLA's dq != dv (minicpm3 96/64, deepseek-v3 192/128), MLA's and
+     cross-attention's serve shapes also on the mma and f32 bodies,
+     seamless's non-causal encoder, causal decoder and cross-attention
+     (Sq != Skv), the reduced f32 train configs' shapes; the scan at each
+     hybrid path's shape;
+  10a-e. serve internvl2-1b, qwen2-moe-a2.7b and minicpm3-4b at their full
+     configs, jamba-v0.1-52b at 8 of 32 layers and deepseek-v3-671b at 4
+     of 61 (3 dense, 1 MoE) through the Server as phase 3 does: 2
+     requests, 8 new tokens each; jamba's prefill launches both kernels;
+  10f. serve seamless-m4t-medium (full config) through ``Model.prefill``
+     and ``decode_step`` on the card, as the JAX package can (its Server
+     feeds no encoder frames);
+  11a-f. train through the Trainer, 2 steps each: internvl2-1b and
+     seamless-m4t-medium full, minicpm3-4b at 16 layers, qwen2-moe-a2.7b
+     at 2 layers, jamba and deepseek-v3 at their reduced configs (one of
+     their MoE layers at full width, with its gradient and AdamW state,
+     does not fit one card);
+  12. the six new families at their reduced configs, f32, card against
+     CPU: prefill and 2 decode steps' logits within 1e-4, one train step
+     at phase 9's bounds;
+  13. every shape key (shape, dtype, causality, kv_len, body; the scan's
+     B/C row stride) that a main path (phases 3, 3b, 7, 8, 8b, 10, 11)
+     gave a kernel is held against the plain version: those the plan
+     above did not check (a second serve batch's prompt length, a
+     FrontDoor flush's rows) are checked here, and a key left unchecked
+     fails the run.
 
 Phase 2 also holds each kernel at the train shapes (flash B=2, S=2048,
 H=32, KV=4, d=64; the scan Bt=2, L=1024, di=8192, N=16; bf16), forward
@@ -220,19 +248,20 @@ def fa_bound_ms(B, Sq, Skv, H, KV, dq, dv, dtype, causal, kv_len):
 
 
 def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
-            body=None, profiled=False):
+            body=None, profiled=False, Skv=None):
     """Kernel vs plain version on one seeded input, both timed; returns
     the record. ``body`` forces a body (default: the one ``_body`` picks);
     ``profiled`` adds the profiler's device time and the host us per
-    wrapper call."""
+    wrapper call; ``Skv`` (default ``S``) is the keys' length."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ref
     dt = getattr(torch, dtype_name)
+    Skv = S if Skv is None else Skv
     g = torch.Generator().manual_seed(0)
     q = torch.randn((B, S, H, dq), generator=g).to("cuda", dt)
-    k = torch.randn((B, S, KV, dq), generator=g).to("cuda", dt)
-    v = torch.randn((B, S, KV, dv), generator=g).to("cuda", dt)
+    k = torch.randn((B, Skv, KV, dq), generator=g).to("cuda", dt)
+    v = torch.randn((B, Skv, KV, dv), generator=g).to("cuda", dt)
     scale = dq ** -0.5
     body = body or kernel._body(q, k, v)
 
@@ -249,21 +278,25 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
     tol = TOL[dtype_name]
     good = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
                 and kernel.launches_by_body[body] == before + 1)
+    CHECKED["flash_attention_fwd"].add(fa_key(
+        B, S, Skv, H, KV, dq, dv, dtype_name, causal, kv_len, body))
     rec = {"shape": [B, S, H, KV, dq, dv], "dtype": dtype_name,
            "causal": causal, "kv_len": kv_len, "body": body,
            "max_abs_err": err, "tol": tol, "ok": good}
+    if Skv != S:
+        rec["Skv"] = Skv
     rec["ms"] = cuda_ms(run)
     rec["plain_ms"] = cuda_ms(lambda: ref.attention_ref(
         q, k, v, scale=scale, causal=causal, kv_len=kv_len))
     rec["library_ms"] = None
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if kv_len is None and dq == dv:
+    if kv_len is None:    # SDPA takes dv != dq (on its math backend)
         rec["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale,
                 enable_gqa=KV != H))
     rec["bound_ms"], rec["bound_by"] = fa_bound_ms(
-        B, S, S, H, KV, dq, dv, dtype_name, causal, kv_len)
+        B, S, Skv, H, KV, dq, dv, dtype_name, causal, kv_len)
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     if profiled:
         rec["profiler_ms"] = profiled_ms(run, FA_KERNEL_NAMES[body])
@@ -436,6 +469,8 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
     h_err = (h - h_ref).abs().max().item()
     good = bool(torch.allclose(y.float(), y_ref.float(), atol=tol, rtol=tol)
                 and torch.allclose(h, h_ref, atol=H_TOL, rtol=0))
+    CHECKED["selective_scan_fwd"].add((Bt, L, di, N, dtype_name,
+                                       B.stride(1)))
     rec = {"shape": [Bt, L, di, N], "dtype": dtype_name,
            "strided_bc": bool(proj_width), "max_abs_err": err,
            "h_max_abs_err": h_err, "tol": tol, "h_tol": H_TOL, "ok": good}
@@ -526,16 +561,17 @@ def phase_kernels(fa_shapes, ss_shapes, dt_rank):
     torch.backends.cudnn.allow_tf32 = False
     fa = phase_flash(*fa_shapes)
     ss = phase_scan(*ss_shapes, dt_rank)
-    torch.cuda.empty_cache()
     return fa, ss
 
 
 # ---------------------------------------------------------------------- serve
-def serve_config(arch):
+def serve_config(arch, batch=4, n_layers=None):
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig, ShapeProfile
     cfg = get_config(arch)
-    return cfg, RunConfig(model=cfg, shape=ShapeProfile("serve", 2048, 4,
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, RunConfig(model=cfg, shape=ShapeProfile("serve", 2048, batch,
                                                         "decode"),
                           remat="none")
 
@@ -574,14 +610,126 @@ def kernel_counters():
     return {"flash_attention_fwd": fa, "selective_scan_fwd": ss}
 
 
-def phase_serve(label, cfg, run, reqs, path_kernel):
+def reset_counters():
+    """Every kernel's launch count and flash's counts by body to 0."""
+    counters = kernel_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    fa_bodies = counters["flash_attention_fwd"].launches_by_body
+    for body in fa_bodies:
+        fa_bodies[body] = 0
+
+
+def read_counters():
+    """(launches by kernel, flash launches by body)."""
+    counters = kernel_counters()
+    return ({n: mod.launches for n, mod in counters.items()},
+            dict(counters["flash_attention_fwd"].launches_by_body))
+
+
+# --------------------------------------------- shapes the main paths launch
+# The first main path that gave a kernel each shape key, and every key held
+# against the plain version in this run (``fa_case``, ``ss_case``). Phase 13
+# checks each launched key that the plan did not, and fails if one is left.
+LAUNCHED = {"flash_attention_fwd": {}, "selective_scan_fwd": {}}
+CHECKED = {"flash_attention_fwd": set(), "selective_scan_fwd": set()}
+_PATH = [None]      # the main path being driven, None between paths
+
+
+def fa_key(B, S, Skv, H, KV, dq, dv, dtype_name, causal, kv_len, body):
+    return (B, S, Skv, H, KV, dq, dv, dtype_name, bool(causal),
+            Skv if kv_len is None else int(kv_len), body)
+
+
+def dtype_name_of(t):
+    return str(t.dtype).removeprefix("torch.")
+
+
+def watch_launch_shapes():
+    """Wrap both kernels' public wrappers, the ones the models call, so
+    that a call made while a main path is driven records its shape key
+    under the path's name. The launch counts stay with the wrappers."""
+    counters = kernel_counters()
+    fa, ss = counters["flash_attention_fwd"], counters["selective_scan_fwd"]
+    fa_fwd, ss_fwd = fa.flash_attention_fwd, ss.selective_scan_fwd
+
+    def fa_watched(q, k, v, *, scale, causal=True, kv_len=None):
+        if _PATH[0]:
+            (B, S, H, dq), (_, Skv, KV, dv) = q.shape, v.shape
+            LAUNCHED["flash_attention_fwd"].setdefault(fa_key(
+                B, S, Skv, H, KV, dq, dv, dtype_name_of(q), causal, kv_len,
+                fa._body(q, k, v)), _PATH[0])
+        return fa_fwd(q, k, v, scale=scale, causal=causal, kv_len=kv_len)
+
+    def ss_watched(x, dt, A, B, C, D, h0):
+        if _PATH[0]:
+            LAUNCHED["selective_scan_fwd"].setdefault(
+                (*x.shape, A.shape[-1], dtype_name_of(x), B.stride(1)),
+                _PATH[0])
+        return ss_fwd(x, dt, A, B, C, D, h0)
+
+    fa.flash_attention_fwd, ss.selective_scan_fwd = fa_watched, ss_watched
+
+
+def on_path(path, fn):
+    """``fn`` with ``path`` named as the main path it drives."""
+    def drive(*args):
+        _PATH[0] = path
+        try:
+            return fn(*args)
+        finally:
+            _PATH[0] = None
+    return drive
+
+
+def phase_launched_shapes():
+    """Hold each kernel at every shape key a main path launched and the
+    plan did not check, then require that no launched key is left
+    unchecked. Returns the records of the keys checked here."""
+    print("== phase 13: every shape the main paths launched, against the "
+          "plain version", flush=True)
+    import torch
+    recs = []
+    for key, path in LAUNCHED["flash_attention_fwd"].items():
+        if key in CHECKED["flash_attention_fwd"]:
+            continue
+        B, S, Skv, H, KV, dq, dv, dt, causal, kv_len, body = key
+        rec = fa_case(B=B, S=S, Skv=Skv, H=H, KV=KV, dq=dq, dv=dv,
+                      dtype_name=dt, causal=causal, body=body,
+                      kv_len=None if kv_len == Skv else kv_len)
+        recs.append({"kernel": "flash_attention_fwd", "path": path, **rec})
+    for key, path in LAUNCHED["selective_scan_fwd"].items():
+        if key in CHECKED["selective_scan_fwd"]:
+            continue
+        Bt, L, di, N, dt, bc_stride = key
+        rec = ss_case(Bt, L, di, N, dt, timed=True,
+                      proj_width=None if bc_stride == N else bc_stride)
+        recs.append({"kernel": "selective_scan_fwd", "path": path, **rec})
+    torch.cuda.synchronize()
+    for rec in recs:
+        print("  unplanned " + json.dumps(rec), flush=True)
+    bad = [r for r in recs if not r["ok"]]
+    check(not bad, f"{len(recs)} launched shapes the plan did not hold "
+          f"agree with the plain version (f32 2e-5, bf16 2e-2)"
+          + (f"; failing: {bad}" if bad else ""))
+    left = [(name, key, path) for name, keys in LAUNCHED.items()
+            for key, path in keys.items() if key not in CHECKED[name]]
+    n = sum(map(len, LAUNCHED.values()))
+    check(n and not left,
+          f"each of the {n} shape keys the main paths launched was held "
+          f"against the plain version in this run"
+          + (f"; left: {left}" if left else ""))
+    return recs
+
+
+def phase_serve(label, cfg, run, reqs, want, cut="full config"):
     """Serve ``reqs`` through the Server on the card; checks that every
-    prefill launched ``path_kernel`` once per layer and no other kernel."""
-    print(f"== phase {label}: serve {cfg.name} (full config) through the "
+    prefill launched each kernel ``want[name]`` times (0 where absent)
+    and every decode none, all flash launches on the tma body."""
+    print(f"== phase {label}: serve {cfg.name} ({cut}) through the "
           f"Emerald runtime on the card", flush=True)
     import torch
     from repro_torch._tree import tree_leaves
-    from repro_torch.cloud.wire import manifest_of
     from repro_torch.launch.serve import Server
     from repro_torch.models.model_zoo import Model
 
@@ -623,52 +771,39 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
     srv.ex_decode.submit = timed_submit
     for r in reqs:
         srv.submit(r)
-    counters = kernel_counters()
-    fa_bodies = counters["flash_attention_fwd"].launches_by_body
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
-    for body in fa_bodies:
-        fa_bodies[body] = 0
+    reset_counters()
     t0 = time.perf_counter()
     try:
         done = []
         while srv.queue:
             done += srv.step_batch()
         serve_s = time.perf_counter() - t0
-        launches = {n: mod.launches for n, mod in counters.items()}
-        by_body = dict(fa_bodies)
+        launches, by_body = read_counters()
         peak = torch.cuda.max_memory_allocated()
         rep = srv.transfer_report()
         spans = srv.runtime.tracer.spans()
-        # the cost of hashing what the serve path puts: the host params
-        # and one device cache
-        t = time.perf_counter()
-        manifest_of(params)
-        params_hash_s = time.perf_counter() - t
         cache = srv.mdss.peek_latest("cache")[0]
         cache_bytes = sum(x.nbytes for x in tree_leaves(cache))
-        t = time.perf_counter()
-        manifest_of(cache)
-        cache_hash_s = time.perf_counter() - t
     finally:
         srv.close()
 
     B = run.shape.global_batch
+    n_new = reqs[0].max_new
     check(len(done) == len(reqs)
-          and all(len(r.tokens) == 32 for r in done),
-          f"{len(done)} requests got 32 tokens each")
+          and all(len(r.tokens) == n_new for r in done),
+          f"{len(done)} requests got {n_new} tokens each")
     check(all(bool(torch.isfinite(l).all()) for l in logits_seen)
           and all(tuple(l.shape) == (B, cfg.vocab_padded)
                   for l in logits_seen),
           f"{len(logits_seen)} fetched logits are finite, ({B}, "
           f"{cfg.vocab_padded})")
     for name, n in launches.items():
-        want = cfg.n_layers * srv.stats["prefills"] \
-            if name == path_kernel else 0
-        check(n == want, f"{name} launches {n} = {want}"
-              + (f" ({cfg.n_layers} layers x {srv.stats['prefills']} "
-                 f"prefills)" if want else " (not on this path)"))
+        per = want.get(name, 0)
+        total = per * srv.stats["prefills"]
+        check(n == total, f"{name} launches {n} = {total}"
+              + (f" ({per} per prefill x {srv.stats['prefills']} "
+                 f"prefills)" if per else " (not on this path)"))
     want_tma = launches["flash_attention_fwd"]
     check(by_body == {"f32": 0, "mma": 0, "tma": want_tma},
           f"flash_attention_fwd launches by body {by_body}: every one on the "
@@ -695,7 +830,8 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
                for st in ("prefill", "decode")}
     out_tokens = sum(len(r.tokens) for r in done)
     stats = {
-        "arch": cfg.name, "requests": len(done),
+        "arch": cfg.name, "depth": cut, "n_layers": cfg.n_layers,
+        "requests": len(done),
         "prompt_lens": [len(r.prompt) for r in reqs],
         "prefills": srv.stats["prefills"],
         "decode_calls": srv.stats["decode_calls"],
@@ -707,16 +843,12 @@ def phase_serve(label, cfg, run, reqs, path_kernel):
         "span_s": tot, **by_step,
         "bytes_moved": {f"{a}->{b}": n
                         for (a, b), n in rep["bytes_moved"].items()},
-        "params_hash_s": params_hash_s, "params_bytes": sum(
-            x.nbytes for x in tree_leaves(params)),
-        "cache_hash_s": cache_hash_s, "cache_bytes": cache_bytes,
+        "params_bytes": sum(x.nbytes for x in tree_leaves(params)),
+        "cache_bytes": cache_bytes,
         "peak_device_bytes": peak, "launches": launches,
         "flash_launches_by_body": by_body,
     }
     print("  serve " + json.dumps(stats), flush=True)
-    del srv, params, cache
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches
 
 
@@ -768,8 +900,6 @@ def phase_model_parity(label, cfg):
           f"logits rel err {rel:.3e} <= {LOGITS_REL_TOL}")
     check(agree >= ARGMAX_AGREE_MIN,
           f"argmax agreement {agree:.3f} >= {ARGMAX_AGREE_MIN}")
-    del p16, c16
-    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------- adjoint tomography
@@ -884,12 +1014,10 @@ def phase_at(cfg):
     obs = at.make_observations(cfg, "cuda").cpu()
     print(f"  observations {tuple(obs.shape)} in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
-    counters = kernel_counters()
-    for mod in counters.values():
-        mod.launches = 0
+    reset_counters()
     local, lchis, lmodel, _, _ = at_arm(cfg, obs, "never")
     off, ochis, omodel, omdss, _ = at_arm(cfg, obs, "annotate")
-    launches = {n: mod.launches for n, mod in counters.items()}
+    launches, _ = read_counters()
     profile = at_kernel_profile(cfg, obs)
     rec = {"mesh": cfg.mesh_name, "local": local, "offloaded": off,
            "kernel_step_on_card": profile,
@@ -952,14 +1080,12 @@ def phase_at_fabric(cfg, offloaded):
     from repro_torch.cloud import Fabric
     from repro_torch.core import EmeraldExecutor, Workflow, partition
     obs = offloaded["obs"]
-    counters = kernel_counters()
-    for mod in counters.values():
-        mod.launches = 0
+    reset_counters()
     with Fabric(workers=2) as fabric:
         pids = fabric.broker.worker_pids()
         rec, chis, model, mdss, transport = at_arm(cfg, obs, "annotate",
                                                    fabric)
-        launches = {n: mod.launches for n, mod in counters.items()}
+        launches, _ = read_counters()
         # a registry step through the same manager: it runs in a worker
         mgr, _ = emerald_manager(fabric)
         wf = Workflow("registry-step")
@@ -1027,7 +1153,6 @@ def phase_frontdoor(cfg, run):
     decode_window(np.stack(windows[:2]))        # warm the card
     mgr, _ = emerald_manager()
     rows, lat = [None] * FD_REQUESTS, [None] * FD_REQUESTS
-    counters = kernel_counters()
     with EmeraldRuntime(mgr, max_workers=4) as rt:
         fd = FrontDoor(rt, decode_window, window_s=0.004, max_batch=32)
 
@@ -1037,8 +1162,7 @@ def phase_frontdoor(cfg, run):
                 rows[i] = fd.decode(windows[i]).result(120)
                 lat[i] = time.perf_counter() - t
 
-        for mod in counters.values():
-            mod.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(FD_CLIENTS)]
@@ -1047,7 +1171,7 @@ def phase_frontdoor(cfg, run):
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t0
-        launches = {n: mod.launches for n, mod in counters.items()}
+        launches, _ = read_counters()
         stats = fd.stats()
         fd.close()
     check(not any(t.is_alive() for t in threads)
@@ -1083,17 +1207,16 @@ def phase_frontdoor(cfg, run):
           f"{FD_REL_TOL}")
     check(agree >= ARGMAX_AGREE_MIN,
           f"argmax agreement {agree:.3f} >= {ARGMAX_AGREE_MIN}")
-    del dev_params
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches
 
 
 # ---------------------------------------------------------------------- train
-def train_run(arch, seq, batch, n_layers=None, grad_accum=1):
+def train_run(arch, seq, batch, n_layers=None, grad_accum=1, small=False):
+    """The train RunConfig; ``small``: the arch's reduced (CPU test)
+    config, f32."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import RunConfig, ShapeProfile
-    cfg = get_config(arch)
+    from repro_torch.configs.base import RunConfig, ShapeProfile, reduced
+    cfg = reduced(get_config(arch)) if small else get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg, RunConfig(model=cfg, shape=ShapeProfile("train", seq, batch,
@@ -1117,37 +1240,35 @@ def device_seconds(prof):
     return kern, copy
 
 
-def phase_train(label, cfg, run, path_kernel, per_step):
+def phase_train(label, cfg, run, per_step, n_steps=TRAIN_STEPS, cut=""):
     """Train ``run`` through the port's Trainer on the card for
-    TRAIN_STEPS steps (the last under torch.profiler); checks the kernel
-    launches per step, the offloads and the bytes each step ships up.
-    Returns the launches of the whole run."""
+    ``n_steps`` steps (a warm-up, then timed steps, the last under
+    torch.profiler); checks each kernel's launches per step
+    (``per_step[name]``, 0 where absent, flash on the tma body for bf16
+    and the f32 body for float32), the offloads and the bytes each step
+    ships up. Returns the launches of the whole run."""
     print(f"== phase {label}: train {cfg.name} ({cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}) through the Trainer on the card",
-          flush=True)
+          f"d_model {cfg.d_model}{', ' + cut if cut else ''}) through the "
+          f"Trainer on the card", flush=True)
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch._tree import tree_leaves
     from repro_torch.launch.train import Trainer
     counters = kernel_counters()
-    fa_bodies = counters["flash_attention_fwd"].launches_by_body
     tr = Trainer(run, policy="annotate")
     check(tr.tiers["cloud"].device.type == "cuda", "cloud tier on the card")
     sp = run.shape
     batch_bytes = sum(v.nbytes for v in tr.data.batch(0).values())
     steps = []
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
-    for body in fa_bodies:
-        fa_bodies[body] = 0
+    reset_counters()
     try:
-        for i in range(TRAIN_STEPS):
+        for i in range(n_steps):
             n_spans = len(tr.runtime.tracer.spans())
             up0 = tr.mdss.bytes_moved.get(("local", "cloud"), 0)
             l0 = {n: mod.launches for n, mod in counters.items()}
-            profiled = i == TRAIN_STEPS - 1
+            profiled = i == n_steps - 1
             prof = (profile(activities=[ProfilerActivity.CPU,
                                         ProfilerActivity.CUDA])
                     if profiled else contextlib.nullcontext())
@@ -1175,8 +1296,7 @@ def phase_train(label, cfg, run, path_kernel, per_step):
             steps.append(rec)
             print(f"  step {json.dumps(rec)}", flush=True)
         peak = torch.cuda.max_memory_allocated()
-        launches = {n: mod.launches for n, mod in counters.items()}
-        by_body = dict(fa_bodies)
+        launches, by_body = read_counters()
         rep = tr.transfer_report()
         state_bytes = sum(x.nbytes for x in tree_leaves(
             (tr.mdss.peek_latest("params")[0],
@@ -1189,6 +1309,7 @@ def phase_train(label, cfg, run, path_kernel, per_step):
     tokens = sp.global_batch * sp.seq_len
     stats = {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "depth": cut or "full config", "steps": n_steps,
         "seq": sp.seq_len, "batch": sp.global_batch,
         "grad_accum": run.grad_accum, "remat": run.remat,
         "s_per_step": timed_s, "tokens_per_s": tokens / timed_s,
@@ -1209,15 +1330,16 @@ def phase_train(label, cfg, run, path_kernel, per_step):
           f"loss and grad_norm finite: {[r['loss'] for r in steps]}, "
           f"{[r['grad_norm'] for r in steps]}")
     for name in counters:
-        want = per_step if name == path_kernel else 0
+        want = per_step.get(name, 0)
         check(all(r["launches"][name] == want for r in steps),
               f"{name} launches {[r['launches'][name] for r in steps]} = "
               f"{want} per step")
-    if path_kernel == "flash_attention_fwd":
-        check(by_body == {"f32": 0, "mma": 0, "tma": launches[path_kernel]},
-              f"flash_attention_fwd launches by body {by_body}: every one "
-              f"on the tma body")
-    check(rep["offloads"] == TRAIN_STEPS,
+    body = "f32" if cfg.dtype == "float32" else "tma"
+    n_fa = launches["flash_attention_fwd"]
+    check(by_body == {b: n_fa if b == body else 0 for b in by_body},
+          f"flash_attention_fwd launches by body {by_body}: every one on "
+          f"the {body} body")
+    check(rep["offloads"] == n_steps,
           f"{rep['offloads']} offloads of train_step")
     check(sorted(ships) == [("opt_state", "local", "cloud"),
                             ("params", "local", "cloud")],
@@ -1228,77 +1350,389 @@ def phase_train(label, cfg, run, path_kernel, per_step):
               for r in steps[1:]),
           f"later steps shipped only the batch ({batch_bytes} B, + <= "
           f"{FRAMING_MAX} B): {[r['up_bytes'] for r in steps[1:]]}")
-    gc.collect()
-    torch.cuda.empty_cache()
     return launches
+
+
+def train_step_parity(cfg, run, params, batch):
+    """One train step of ``run`` from the host ``params`` and ``batch`` on
+    the card (f32 kernel bodies) against the CPU (plain versions): loss,
+    xent, aux and mtp within STEP_LOSS_RTOL, grad_norm within
+    STEP_GNORM_RTOL, every updated leaf within 2 lr_1, and the card's
+    launches those of one step (``train_launches``), flash on the f32
+    body. Returns the record."""
+    import torch
+    from repro_torch._tree import to_device, tree_leaves
+    from repro_torch.models.model_zoo import Model
+    model = Model(run)
+    opt = model.opt_init(params)
+    reset_counters()
+    t = time.perf_counter()
+    pc, _, mc = model.train_step(to_device(params, "cuda"),
+                                 to_device(opt, "cuda"),
+                                 to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    launches, by_body = read_counters()
+    t = time.perf_counter()
+    ph, _, mh = model.train_step(params, opt, batch)
+    cpu_s = time.perf_counter() - t
+    lr1 = float(mh["lr"])
+    leaf_err = max(float((a.cpu() - b).abs().max())
+                   for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
+    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
+           for k in ("loss", "xent", "aux", "mtp", "grad_norm")
+           if k in mh and float(mh[k]) != 0}
+    rec = {"arch": cfg.name, "card": {k: float(v) for k, v in mc.items()},
+           "cpu": {k: float(v) for k, v in mh.items()}, "rel_diff": rel,
+           "max_leaf_abs_diff": leaf_err, "two_lr1": 2 * lr1,
+           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
+           "flash_launches_by_body": by_body}
+    print("  train_parity " + json.dumps(rec), flush=True)
+    losses = {k: v for k, v in rel.items() if k != "grad_norm"}
+    check(max(losses.values()) <= STEP_LOSS_RTOL,
+          f"loss rel diffs {losses} <= {STEP_LOSS_RTOL}")
+    check(rel["grad_norm"] <= STEP_GNORM_RTOL,
+          f"grad_norm rel diff {rel['grad_norm']:.3e} <= {STEP_GNORM_RTOL}")
+    check(leaf_err <= 2 * lr1,
+          f"every updated leaf within 2 lr_1: {leaf_err:.3e} <= "
+          f"{2 * lr1:.3e}")
+    want = train_launches(cfg, run.grad_accum)
+    check(launches == want and by_body["f32"]
+          == want["flash_attention_fwd"],
+          f"the card's step launched {launches} = {want} (forward and "
+          f"recompute), flash on the f32 body")
+    return rec
 
 
 def phase_train_parity(label, arch):
     """One f32 train step at 2 layers, full width, card vs CPU."""
     print(f"== phase {label}: one train step of {arch} at 2 layers, full "
           f"width, f32: card (kernels) vs CPU (plain)", flush=True)
-    import torch
-    from repro_torch._tree import to_device, tree_leaves
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import Model
     cfg, run = train_run(arch, 128, 2, n_layers=2)
     cfg = dataclasses.replace(cfg, param_dtype="float32", dtype="float32")
     run = run.with_(model=cfg)
-    model = Model(run)
-    params, _ = init_on_card(model, seed=3)
-    opt = model.opt_init(params)
+    params, _ = init_on_card(Model(run), seed=3)
     batch = SyntheticLMData(cfg, run.shape, seed=3).batch(0)
-    counters = kernel_counters()
-    fa_bodies = counters["flash_attention_fwd"].launches_by_body
-    for mod in counters.values():
-        mod.launches = 0
-    for body in fa_bodies:
-        fa_bodies[body] = 0
-    t = time.perf_counter()
-    pc, oc, mc = model.train_step(to_device(params, "cuda"),
-                                  to_device(opt, "cuda"),
-                                  to_device(batch, "cuda"))
+    train_step_parity(cfg, run, params, batch)
+
+
+# ------------------------------------------------------------- the model zoo
+# The six architectures beyond the dense and Mamba-only ones, with the
+# depth each runs at on one 80 GB card (bf16 params; train with AdamW f32
+# state at ~28 B per param, PERF.md): serve depth, train depth, tokens.
+ZOO_SERVE = (("internvl2-1b", None), ("qwen2-moe-a2.7b", None),
+             ("minicpm3-4b", None), ("jamba-v0.1-52b", 8),
+             ("deepseek-v3-671b", 4))
+ZOO_TRAIN = (("internvl2-1b", None, 2048), ("seamless-m4t-medium", None, 1024),
+             ("minicpm3-4b", 16, 1024), ("qwen2-moe-a2.7b", 2, 1024))
+ZOO_CUT = {
+    ("jamba-v0.1-52b", "serve"): "8 of 32 layers (one attention period: "
+    "7 Mamba layers, 4 of them MoE, and the attention layer; 13.3 B params)",
+    ("deepseek-v3-671b", "serve"): "4 of 61 layers (the 3 dense layers and "
+    "one 256-expert MoE layer; 15.8 B params)",
+    ("minicpm3-4b", "train"): "16 of 62 layers (the whole 4.4 B model with "
+    "AdamW f32 state needs ~123 GB)",
+    ("qwen2-moe-a2.7b", "train"): "2 of 24 layers (the whole 14.3 B model "
+    "with AdamW f32 state needs ~400 GB)",
+    ("jamba-v0.1-52b", "train"): "reduced config (one mamba_moe layer at "
+    "full width is 2.8 B params: with its gradient and AdamW f32 state it "
+    "does not fit one card; waits on sharding)",
+    ("deepseek-v3-671b", "train"): "reduced config (one 256-expert MoE "
+    "layer at full width is 11.3 B params: with its gradient and AdamW f32 "
+    "state it does not fit one card; waits on sharding)",
+}
+ZOO_SERVE_NEW = 8        # tokens per request on the zoo's serve paths
+ZOO_PARITY_TOL = 1e-4    # f32 logits card vs CPU (the CPU tests' serve bound)
+
+
+def zoo_launches(cfg):
+    """Kernel launches of one forward over a sequence: flash attention
+    once per attention layer (and per encoder layer and cross-attention
+    of an encoder-decoder), the selective scan once per Mamba layer."""
+    from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE
+    n_attn = sum(cfg.block_type(i) in (ATTN_DENSE, ATTN_MOE)
+                 for i in range(cfg.n_layers))
+    fa = n_attn + (cfg.n_encoder_layers + cfg.n_layers
+                   if cfg.is_encoder_decoder else 0)
+    return {"flash_attention_fwd": fa,
+            "selective_scan_fwd": cfg.n_layers - n_attn}
+
+
+def train_launches(cfg, grad_accum=1):
+    """Launches of one train step under remat "full": every block's
+    forward runs again in the backward; the MTP head's block is not
+    rematerialised."""
+    per = zoo_launches(cfg)
+    return {"flash_attention_fwd": grad_accum * (
+                2 * per["flash_attention_fwd"] + int(cfg.mtp)),
+            "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"]}
+
+
+def phase_kernels_zoo(fa_cases, ss_cases):
+    """Flash attention at every call of the zoo's serve and train paths
+    (MLA's dq != dv, up to 192; non-causal encoders and cross-attention
+    with Sq != Skv; the reduced f32 train configs) on the body the wrapper
+    picks, and MLA's and cross-attention's serve shapes on the mma.sync
+    and f32 bodies too; the scan at each hybrid path's shape."""
+    print("== phase 2b: kernels at the model zoo's shapes on the card",
+          flush=True)
+    import torch
+    recs = {}
+    for name, c, other_bodies in fa_cases:
+        rec = fa_case(**c, profiled=True)
+        rec["path"] = name
+        recs[name] = rec
+        print(f"  flash_attention_fwd ({name}) " + json.dumps(rec),
+              flush=True)
+        for body in other_bodies:
+            dt = "float32" if body == "f32" else "bfloat16"
+            r = fa_case(**dict(c, dtype_name=dt), body=body)
+            rec[f"{body}_body"] = {k: r[k] for k in (
+                "ms", "plain_ms", "bound_ms", "max_abs_err", "tol", "ok")}
+            print(f"  flash_attention_fwd ({name}, {body} body) "
+                  + json.dumps(r), flush=True)
+    ss_recs = {}
+    for name, (Bt, L, di, N, r, dt) in ss_cases:
+        rec = ss_case(Bt, L, di, N, dt, proj_width=r + 2 * N, timed=True)
+        rec["path"] = name
+        ss_recs[name] = rec
+        print(f"  selective_scan_fwd ({name}) " + json.dumps(rec), flush=True)
     torch.cuda.synchronize()
-    card_s = time.perf_counter() - t
-    launches = {n: mod.launches for n, mod in counters.items()}
-    by_body = dict(fa_bodies)
+    every = list(recs.values()) + [r[f"{b}_body"] for r in recs.values()
+                                   for b in ("mma", "f32")
+                                   if f"{b}_body" in r]
+    bad = [r for r in every + list(ss_recs.values()) if not r["ok"]]
+    check(not bad, f"{len(every)} flash cases at the zoo's shapes agree with "
+          f"attention_ref (f32 2e-5, bf16 2e-2) and {len(ss_recs)} scan "
+          f"cases with selective_scan_ref"
+          + (f"; failing: {bad}" if bad else ""))
+    check(all(r["body"] == ("f32" if r["dtype"] == "float32" else "tma")
+              for r in recs.values()),
+          "every bf16 zoo shape ran the tma body, every f32 one the f32 "
+          "body")
+    return recs, ss_recs
+
+
+def phase_serve_encdec(label, cfg, run, prompt, n_new):
+    """seamless-m4t-medium through ``Model.prefill``/``decode_step`` on the
+    card: the JAX package's Server feeds prefill tokens only, and the
+    encoder reads ``encoder_embeds`` (PERF.md), so an encoder-decoder is
+    served the way its reference's arch smoke test drives it."""
+    print(f"== phase {label}: serve {cfg.name} (full config) through "
+          f"Model.prefill / decode_step on the card", flush=True)
+    import torch
+    from repro_torch._tree import to_device, tree_leaves
+    from repro_torch.configs.base import ShapeProfile
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.model_zoo import Model
+    model = Model(run)
+    params, init_s = init_on_card(model, seed=0)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    dev = to_device(params, "cuda")
+    del params
+    B, S = run.shape.global_batch, run.shape.seq_len
+    batch = SyntheticLMData(cfg, ShapeProfile("serve", S, B, "train")
+                            ).batch(0)
+    batch = {"encoder_embeds": batch["encoder_embeds"].cuda(),
+             "tokens": batch["tokens"][:, :prompt].cuda()}
+    cache = model.init_cache("cuda")
+    model.prefill(dev, batch, cache)          # warm the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
     t = time.perf_counter()
-    ph, oh, mh = model.train_step(params, opt, batch)
-    cpu_s = time.perf_counter() - t
-    lr1 = float(mh["lr"])
-    leaf_err = max(float((a.cpu() - b).abs().max())
-                   for a, b in zip(tree_leaves(pc), tree_leaves(ph)))
-    rel = {k: abs(float(mc[k]) - float(mh[k])) / abs(float(mh[k]))
-           for k in ("loss", "grad_norm")}
-    rec = {"arch": arch, "card": {k: float(v) for k, v in mc.items()},
-           "cpu": {k: float(v) for k, v in mh.items()}, "rel_diff": rel,
-           "max_leaf_abs_diff": leaf_err, "two_lr1": 2 * lr1,
-           "card_s": card_s, "cpu_s": cpu_s, "launches": launches,
-           "flash_launches_by_body": by_body}
-    print("  train_parity " + json.dumps(rec), flush=True)
-    check(rel["loss"] <= STEP_LOSS_RTOL,
-          f"loss rel diff {rel['loss']:.3e} <= {STEP_LOSS_RTOL}")
-    check(rel["grad_norm"] <= STEP_GNORM_RTOL,
-          f"grad_norm rel diff {rel['grad_norm']:.3e} <= {STEP_GNORM_RTOL}")
-    check(leaf_err <= 2 * lr1,
-          f"every updated leaf within 2 lr_1: {leaf_err:.3e} <= "
-          f"{2 * lr1:.3e}")
-    kern = ("flash_attention_fwd" if cfg.family != "ssm"
-            else "selective_scan_fwd")
-    check(launches[kern] == 2 * 2 and sum(launches.values()) == 4,
-          f"the card side launched {kern} 2 layers x 2 (forward, "
-          f"recompute): {launches}")
-    if kern == "flash_attention_fwd":
-        check(by_body["f32"] == 4, f"on the f32 body: {by_body}")
-    del pc, oc
-    gc.collect()
-    torch.cuda.empty_cache()
+    logits, cache = model.prefill(dev, batch, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    after_prefill, by_body = read_counters()
+    seen, decode_s = [logits], []
+    for _ in range(n_new - 1):
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        t = time.perf_counter()
+        logits, cache = model.decode_step(dev, tok, cache)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t)
+        seen.append(logits)
+    launches, _ = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    want = zoo_launches(cfg)
+    stats = {"arch": cfg.name, "depth": "full config",
+             "encoder_layers": cfg.n_encoder_layers,
+             "decoder_layers": cfg.n_layers, "params": n_params,
+             "batch": B, "encoder_frames": S, "prompt_tokens": prompt,
+             "prefill_s": prefill_s,
+             "decode_ms_per_token": 1e3 * sum(decode_s) / len(decode_s),
+             "peak_device_bytes": peak, "launches": launches,
+             "flash_launches_by_body": by_body,
+             "cache_pos": tfm.cache_position(cache)}
+    print("  serve " + json.dumps(stats), flush=True)
+    check(all(bool(torch.isfinite(l).all())
+              and tuple(l.shape) == (B, cfg.vocab_padded) for l in seen),
+          f"{len(seen)} logits finite, ({B}, {cfg.vocab_padded})")
+    check(after_prefill == launches == want,
+          f"the prefill launched {after_prefill} (encoder "
+          f"{cfg.n_encoder_layers} + decoder self {cfg.n_layers} + cross "
+          f"{cfg.n_layers} flash), the {n_new - 1} decodes none")
+    check(by_body["tma"] == want["flash_attention_fwd"],
+          f"flash launches by body {by_body}: every one on the tma body")
+    check(stats["cache_pos"] == prompt + n_new - 1,
+          f"cache position {stats['cache_pos']} = {prompt} + {n_new - 1}")
+    return launches
+
+
+def phase_zoo_parity(label, arch):
+    """One architecture at its reduced (CPU test) config, f32, from one
+    param tree: prefill and two decode steps' logits, and one train step,
+    on the card (f32 kernel bodies) against the CPU (plain versions)."""
+    print(f"== phase {label}: {arch} reduced, f32: card (kernels) vs CPU "
+          f"(plain)", flush=True)
+    import torch
+    from repro_torch._tree import to_device
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig, ShapeProfile, reduced
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import Model
+    S, B = 32, 2
+    cfg = reduced(get_config(arch))
+    model = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B,
+                                                          "decode"),
+                            remat="none"))
+    params = model.init_params(torch.Generator().manual_seed(4))
+    dparams = to_device(params, "cuda")
+    batch = SyntheticLMData(cfg, ShapeProfile("t", S, B, "train"),
+                            seed=4).batch(0)
+    pb = {k: v[:, :S // 2] if k == "tokens" else v
+          for k, v in batch.items() if k != "labels"}
+    reset_counters()
+    lc, cc = model.prefill(params, pb, model.init_cache())
+    lg, cg = model.prefill(dparams, to_device(pb, "cuda"),
+                           model.init_cache("cuda"))
+    pairs = [(lc, lg.cpu())]
+    tok = torch.argmax(lc, -1).to(torch.int32)
+    for _ in range(2):    # teacher-forced with the CPU's greedy tokens
+        lc, cc = model.decode_step(params, tok, cc)
+        lg, cg = model.decode_step(dparams, tok.cuda(), cg)
+        pairs.append((lc, lg.cpu()))
+        tok = torch.argmax(lc, -1).to(torch.int32)
+    serve_launches, _ = read_counters()
+    logit_err = max(float((a - b).abs().max()) for a, b in pairs)
+    print("  zoo_parity " + json.dumps({
+        "arch": arch, "logits_max_abs_diff": logit_err,
+        "logits_tol": ZOO_PARITY_TOL, "serve_launches": serve_launches}),
+        flush=True)
+    check(logit_err <= ZOO_PARITY_TOL,
+          f"prefill and 2 decode steps' logits within {ZOO_PARITY_TOL}: "
+          f"{logit_err:.3e}")
+    want = zoo_launches(cfg)
+    check(serve_launches == want,
+          f"the card's prefill launched {serve_launches} = {want}, its "
+          f"decodes none")
+    del dparams
+    train_step_parity(cfg, RunConfig(model=cfg, shape=ShapeProfile(
+        "t", S, B, "train"), remat="full"), params, batch)
+
+
+def attn_calls(path, cfg, B, S, enc_len=None):
+    """The flash calls one forward of ``cfg`` over ``S`` positions makes
+    (an encoder-decoder's also over ``enc_len`` frames), as (name,
+    ``fa_case`` arguments) in the config's dtype."""
+    mla = cfg.attn_type == "mla"
+    H = cfg.heads_padded
+    base = dict(B=B, H=H, dtype_name=cfg.dtype)
+    calls = [(f"{path} decoder" if cfg.is_encoder_decoder else path, dict(
+        base, S=S, KV=H if mla else cfg.kv_heads_padded,
+        dq=cfg.qk_nope_head_dim + cfg.qk_rope_head_dim if mla else cfg.hdim,
+        dv=cfg.v_head_dim if mla else cfg.hdim, causal=True))]
+    if cfg.is_encoder_decoder:
+        enc = dict(base, KV=H, dq=cfg.hdim, dv=cfg.hdim, causal=False)
+        calls += [(f"{path} encoder", dict(enc, S=enc_len)),
+                  (f"{path} cross-attention", dict(enc, S=S, Skv=enc_len))]
+    return calls
+
+
+def zoo_plan():
+    """The zoo's serve runs (config, run, requests), its train runs, and
+    the shapes they give the kernels: flash at every call of each path
+    (MLA's and cross-attention's serve shapes on the mma.sync and f32
+    bodies too), the scan at each hybrid path's."""
+    zoo_serve = []
+    for arch, depth in ZOO_SERVE:
+        zcfg, zrun = serve_config(arch, batch=2, n_layers=depth)
+        zreqs = make_requests(zcfg, n=2, max_new=ZOO_SERVE_NEW, seed=2)
+        zoo_serve.append((zcfg, zrun, zreqs))
+    ecfg, erun = serve_config("seamless-m4t-medium", batch=2)
+    erun = erun.with_(shape=dataclasses.replace(erun.shape, seq_len=512))
+    e_prompt = 384
+    zoo_train = [train_run(arch, seq, 2, n_layers=depth)
+                 for arch, depth, seq in ZOO_TRAIN]
+    zoo_train += [train_run(arch, 256, 2, small=True)
+                  for arch in ("jamba-v0.1-52b", "deepseek-v3-671b")]
+    paths = [(f"serve {c.name}", c, r.shape.global_batch, packed_len(r, q),
+              None) for c, r, q in zoo_serve]
+    paths.append((f"serve {ecfg.name}", ecfg, 2, e_prompt,
+                  erun.shape.seq_len))
+    paths += [(f"train {c.name}", c, r.shape.global_batch, r.shape.seq_len,
+               r.shape.seq_len) for c, r in zoo_train]
+    fa_zoo, ss_zoo = [], []
+    for path, zcfg, B, S, enc_len in paths:
+        serve = path.startswith("serve")
+        for name, c in attn_calls(path, zcfg, B, S, enc_len):
+            more = serve and (zcfg.attn_type == "mla" or "cross" in name)
+            fa_zoo.append((name, c, ("mma", "f32") if more else ()))
+        if zcfg.family == "hybrid":
+            ss_zoo.append((path, (B, S, zcfg.d_inner, zcfg.ssm_state,
+                                  zcfg.dt_rank_, zcfg.dtype)))
+    return {"serve": zoo_serve, "encdec": (ecfg, erun, e_prompt),
+            "train": zoo_train, "fa_cases": fa_zoo, "ss_cases": ss_zoo}
+
+
+def zoo_paths(plan):
+    """Serve (phases 10a-f) and train (11a-f) the zoo on the card, and
+    hold each new family card against CPU (12); returns each kernel's
+    launches by path."""
+    by_path = {name: {} for name in kernel_counters()}
+
+    def add_path(path, launches):
+        for name, n in launches.items():
+            if n:
+                by_path[name][path] = n
+
+    ecfg, erun, e_prompt = plan["encdec"]
+    for i, (zcfg, zrun, zreqs) in enumerate(plan["serve"]):
+        cut = ZOO_CUT.get((zcfg.name, "serve"), "full config")
+        path = f"serve {zcfg.name}"
+        add_path(path, timed(
+            f"phase 10{'abcde'[i]}", on_path(path, phase_serve),
+            f"10{'abcde'[i]}", zcfg, zrun, zreqs, zoo_launches(zcfg), cut))
+    path = f"serve {ecfg.name}"
+    add_path(path, timed(
+        "phase 10f", on_path(path, phase_serve_encdec), "10f", ecfg, erun,
+        e_prompt, ZOO_SERVE_NEW))
+    for i, (zcfg, zrun) in enumerate(plan["train"]):
+        path = f"train {zcfg.name}"
+        add_path(path, timed(
+            f"phase 11{'abcdef'[i]}", on_path(path, phase_train),
+            f"11{'abcdef'[i]}", zcfg, zrun, train_launches(zcfg), 2,
+            ZOO_CUT.get((zcfg.name, "train"), "")))
+    for arch in ("internvl2-1b", "qwen2-moe-a2.7b", "minicpm3-4b",
+                 "jamba-v0.1-52b", "seamless-m4t-medium", "deepseek-v3-671b"):
+        timed(f"phase 12 ({arch})", phase_zoo_parity, "12", arch)
+    return by_path
 
 
 def timed(name, fn, *args):
+    import torch
     t0 = time.perf_counter()
     out = fn(*args)
     print(f"  [{name}: {time.perf_counter() - t0:.3f} s wall]", flush=True)
+    # a phase's runtime, handles and spans form reference cycles that
+    # hold its device values: collect them now, or the next phase's peak
+    # device bytes would count them
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1320,6 +1754,7 @@ def main() -> int:
         futs = {n: pool.submit(mod.build) for n, mod in counters.items()}
         libs = {n: str(f.result()) for n, f in futs.items()}
     print(f"  built {libs} in {time.perf_counter() - t0:.3f} s", flush=True)
+    watch_launch_shapes()
     for lib in libs.values():       # registers and spills of each kernel
         info = Path(lib).with_suffix(".ptxas.txt")
         for line in info.read_text().splitlines() if info.exists() else []:
@@ -1346,15 +1781,21 @@ def main() -> int:
         "phase 2", phase_kernels, (fa_shape, fa_train), (ss_shape, ss_train),
         mcfg.dt_rank_)
 
+    plan = zoo_plan()
+    fa_zoo_recs, ss_zoo_recs = timed("phase 2b", phase_kernels_zoo,
+                                     plan["fa_cases"], plan["ss_cases"])
+
     check(cfg.n_layers == 22 and cfg.d_model == 2048
           and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
-    fa_launches = timed("phase 3", phase_serve, "3", cfg, run, reqs,
-                        "flash_attention_fwd")
+    fa_launches = timed("phase 3", on_path("serve tinyllama-1.1b",
+                                           phase_serve), "3", cfg, run,
+                        reqs, zoo_launches(cfg))
     timed("phase 4", phase_model_parity, "4", cfg)
     check(mcfg.n_layers == 64 and mcfg.d_model == 4096
           and mcfg.param_dtype == "bfloat16", "full falcon-mamba-7b config")
-    ss_launches = timed("phase 3b", phase_serve, "3b", mcfg, mrun, mreqs,
-                        "selective_scan_fwd")
+    ss_launches = timed("phase 3b", on_path("serve falcon-mamba-7b",
+                                            phase_serve), "3b", mcfg, mrun,
+                        mreqs, zoo_launches(mcfg))
     timed("phase 4b", phase_model_parity, "4b", mcfg)
 
     from repro_torch.apps.adjoint_tomography import FIG11, FIG12
@@ -1365,24 +1806,44 @@ def main() -> int:
     fig11 = timed("phase 5 (Fig 11)", phase_at, FIG11)
     timed("phase 5 (Fig 12)", phase_at, FIG12)
     timed("phase 6", phase_at_fabric, FIG11, fig11)
-    fd_launches = timed("phase 7", phase_frontdoor, cfg, run)
+    fd_launches = timed("phase 7", on_path("frontdoor tinyllama-1.1b",
+                                           phase_frontdoor), cfg, run)
 
     check(tcfg.n_layers == 22 and tcfg.d_model == 2048
           and tcfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
     fa_train_launches = timed(
-        "phase 8", phase_train, "8", tcfg, trun, "flash_attention_fwd",
-        tcfg.n_layers * 2 * trun.grad_accum)
+        "phase 8", on_path("train tinyllama-1.1b", phase_train), "8", tcfg,
+        trun,
+        train_launches(tcfg, trun.grad_accum))
     check(tmcfg.d_model == 4096 and tmcfg.d_inner == 8192
           and tmcfg.ssm_state == 16 and tmcfg.param_dtype == "bfloat16",
           f"falcon-mamba-7b at full width, {MAMBA_TRAIN_LAYERS} of 64 "
           f"layers (the whole model with AdamW f32 state needs ~87 GB, "
           f"more than the card's 80 GB)")
     ss_train_launches = timed(
-        "phase 8b", phase_train, "8b", tmcfg, tmrun, "selective_scan_fwd",
-        tmcfg.n_layers * 2 * tmrun.grad_accum)
+        "phase 8b", on_path("train falcon-mamba-7b", phase_train), "8b",
+        tmcfg, tmrun,
+        train_launches(tmcfg, tmrun.grad_accum), TRAIN_STEPS,
+        f"{MAMBA_TRAIN_LAYERS} of 64 layers")
     timed("phase 9 (tinyllama)", phase_train_parity, "9", "tinyllama-1.1b")
     timed("phase 9 (falcon-mamba)", phase_train_parity, "9",
           "falcon-mamba-7b")
+
+    # ---- the rest of the model zoo: serve, train, card against CPU
+    by_path = {"flash_attention_fwd": {
+        "serve tinyllama-1.1b": fa_launches["flash_attention_fwd"],
+        "frontdoor tinyllama-1.1b": fd_launches["flash_attention_fwd"],
+        "train tinyllama-1.1b": fa_train_launches["flash_attention_fwd"]},
+        "selective_scan_fwd": {
+        "serve falcon-mamba-7b": ss_launches["selective_scan_fwd"],
+        "train falcon-mamba-7b": ss_train_launches["selective_scan_fwd"]}}
+
+    for name, paths in zoo_paths(plan).items():
+        by_path[name].update(paths)
+    check(by_path["selective_scan_fwd"].get("serve jamba-v0.1-52b")
+          and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
+          "the jamba serve path launched both kernels")
+    unplanned = timed("phase 13", phase_launched_shapes)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype", "profiler_ms",
@@ -1407,20 +1868,29 @@ def main() -> int:
               "src/repro_torch/kernels/flash_attention/csrc/"
               "flash_attention_fwd.cu",
               "src/repro/kernels/flash_attention/kernel.py:71",
-              {"serve": fa_launches["flash_attention_fwd"],
-               "frontdoor": fd_launches["flash_attention_fwd"],
-               "train": fa_train_launches["flash_attention_fwd"]},
-              fa, fa_long, fa_tr, fa["body"]),
+              by_path["flash_attention_fwd"], fa, fa_long, fa_tr,
+              fa["body"]),
         entry("selective_scan_fwd",
               "src/repro_torch/kernels/mamba_scan/csrc/selective_scan_fwd.cu",
               "src/repro/kernels/mamba_scan/kernel.py:54",
-              {"serve": ss_launches["selective_scan_fwd"],
-               "train": ss_train_launches["selective_scan_fwd"]},
-              ss, ss_long, ss_tr,
+              by_path["selective_scan_fwd"], ss, ss_long, ss_tr,
               f"ss_fwd_kernel (bf16: state columns split over "
               f"{counters['selective_scan_fwd'].lanes(torch.bfloat16)} "
               f"lanes)")]}
     record["kernels"][0]["mma_body"] = fa["mma_body"]
+    zoo_keys = keys + ("share_of_bound", "body", "library_profiler_ms")
+    record["kernels"][0]["zoo_shapes"] = {
+        name: {**{k: r.get(k) for k in zoo_keys + ("Skv",)},
+               **{f"{b}_body": r[f"{b}_body"] for b in ("mma", "f32")
+                  if f"{b}_body" in r}}
+        for name, r in fa_zoo_recs.items()}
+    record["kernels"][1]["zoo_shapes"] = {
+        name: {k: r.get(k) for k in keys + ("share_of_bound",)}
+        for name, r in ss_zoo_recs.items()}
+    for i, kern in enumerate(record["kernels"]):
+        kern["unplanned_shapes"] = [
+            {k: r.get(k) for k in ("path", "body", "Skv", "kv_len")
+             + keys[:8]} for r in unplanned if r["kernel"] == kern["name"]]
     print(f"  [total: {time.perf_counter() - t_start:.3f} s wall]",
           flush=True)
     print(card)

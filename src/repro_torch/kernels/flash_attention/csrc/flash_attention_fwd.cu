@@ -21,10 +21,15 @@
 // ~2.8 us of bf16 tensor-core work, so the bound is bytes. At a 2048-token
 // prompt the products (69 GFLOP, ~70 us) bound it.
 //
+// Head dims: dq up to 256 (MLA's 128 + 64 = 192 is the widest a model
+// here uses), dv up to 128. Each body is instantiated for a few dq and dv
+// bounds and pads up to the bound in shared memory, as the TPU kernel's
+// wrapper pads every head dim to a multiple of 128 lanes.
+//
 // Three bodies; the wrapper (kernel.py `_body`) picks one from the shapes,
 // strides and dtype alone:
 //   * tma  — bf16 where TMA can address q, k, v and o (16-B aligned bases,
-//     strides multiples of 16 B, head dims multiples of 8 up to 128). One
+//     strides multiples of 16 B, head dims multiples of 8). One
 //     block per (128-row q tile, q head, batch): a producer warp loads the
 //     q tile once and streams 64-key K/V tiles into a two-stage ring by TMA
 //     (128-B swizzle, one 64-element box per head-dim slice, zero fill
@@ -43,7 +48,8 @@
 //     64-key tiles staged by plain loads.
 //   * f32  — the products on the CUDA cores (tensor-core TF32 would miss
 //     the reference's 2e-5 tolerance), 256 threads with a 4x4 register
-//     micro-tile for the scores and a quad of threads per output row.
+//     micro-tile for the scores and a quad of threads per output row; dq
+//     is only the first product's loop length, dv sizes the accumulator.
 
 #include <cuda.h>          // CUtensorMap; the encoder is found at run time
 #include <cuda_runtime.h>
@@ -56,8 +62,9 @@ namespace {
 constexpr int BQ = 64;          // q rows per block
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;
-constexpr int MAX_D = 128;      // dq and dv limit
-constexpr int ACC = MAX_D / 4;  // accumulator slots per thread
+constexpr int MAX_DQ = 256;     // q/k head dim limit
+constexpr int MAX_DV = 128;     // v head dim limit
+constexpr int ACC = MAX_DV / 4; // accumulator slots per thread
 constexpr float NEG_INF = -1e30f;
 
 struct Strides {
@@ -208,7 +215,7 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // stay in registers, in the mma fragment layout. P is rounded to bf16
 // before the second product, as the reference rounds p to v's dtype.
 // Head dims are zero-padded in shared memory to a multiple of 16 (q, k) or
-// 8 (v); DMAX (64 or 128) sizes the register arrays.
+// 8 (v); DQM (64, 128 or 256) and DVM (64 or 128) size the register arrays.
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = BQ / 16;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
@@ -231,7 +238,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int DMAX>
+template <int DQM, int DVM>
 __global__ void __launch_bounds__(MMA_THREADS)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -240,14 +247,14 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   int H, int G, int Sq, int Skv, int dq, int dv,
                   Strides sq, Strides sk, Strides sv, Strides so,
                   float scale, int causal, int kv_len) {
-  constexpr int LD = DMAX + 8;    // q/k row stride: conflict-free 32-bit reads
+  constexpr int LD = DQM + 8;     // q/k row stride: conflict-free 32-bit reads
   constexpr int LDV = BK + 8;     // v^T row stride
-  constexpr int NK = DMAX / 16;   // k-steps of the first product
-  constexpr int NV = DMAX / 8;    // n-tiles of the output
+  constexpr int NK = DQM / 16;    // k-steps of the first product
+  constexpr int NV = DVM / 8;     // n-tiles of the output
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(mma_smem);
   __nv_bfloat16* k_s = q_s + BQ * LD;          // BK x LD
-  __nv_bfloat16* vt_s = k_s + BK * LD;         // DMAX x LDV (v transposed)
+  __nv_bfloat16* vt_s = k_s + BK * LD;         // DVM x LDV (v transposed)
 
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -395,20 +402,20 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DMAX>
+template <int DQM, int DVM>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int Sq, int Skv, int dq, int dv,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        float scale, int causal, int kv_len,
                        cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
-      (size_t)((BQ + BK) * (DMAX + 8) + DMAX * (BK + 8));
+      (size_t)((BQ + BK) * (DQM + 8) + DVM * (BK + 8));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_mma_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fa_fwd_mma_kernel<DQM, DVM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_mma_kernel<DMAX><<<grid, MMA_THREADS, smem, stream>>>(
+  fa_fwd_mma_kernel<DQM, DVM><<<grid, MMA_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, H / KV, Sq, Skv, dq,
       dv, sq, sk, sv, so, scale, causal, kv_len);
@@ -939,8 +946,8 @@ extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
                       long long vs, long long vh, long long ob, long long os,
                       long long oh, float scale, int causal, int kv_len,
                       void* stream) {
-  if (dq < 1 || dv < 1 || dq > MAX_D || dv > MAX_D || KV < 1 || H % KV != 0
-      || body < 0 || body > 2)
+  if (dq < 1 || dv < 1 || dq > MAX_DQ || dv > MAX_DV || KV < 1
+      || H % KV != 0 || body < 0 || body > 2)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
@@ -952,12 +959,20 @@ extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
     err = launch_f32(FA_ARGS);
   else if (body == 1)
     err = (dq + 15) / 16 * 16 <= 64 && (dv + 7) / 8 * 8 <= 64
-              ? launch_mma<64>(FA_ARGS) : launch_mma<128>(FA_ARGS);
+              ? launch_mma<64, 64>(FA_ARGS)
+          : (dq + 15) / 16 * 16 <= 128 ? launch_mma<128, 128>(FA_ARGS)
+                                       : launch_mma<256, 128>(FA_ARGS);
   else if (dq <= 64)
     err = dv <= 64 ? launch_tma<64, 64>(FA_ARGS) : launch_tma<64, 128>(FA_ARGS);
-  else
+  else if (dq <= 128)
     err = dv <= 64 ? launch_tma<128, 64>(FA_ARGS)
                    : launch_tma<128, 128>(FA_ARGS);
+  else if (dq <= 192)
+    err = dv <= 64 ? launch_tma<192, 64>(FA_ARGS)
+                   : launch_tma<192, 128>(FA_ARGS);
+  else
+    err = dv <= 64 ? launch_tma<256, 64>(FA_ARGS)
+                   : launch_tma<256, 128>(FA_ARGS);
 #undef FA_ARGS
   return (int)err;
 }

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention_fwd.cu"
-MAX_HEAD_DIM = 128
+MAX_DQ, MAX_DV = 256, 128         # the kernel's head-dim limits
 _DTYPES = (torch.float32, torch.bfloat16)
 _BODIES = {"f32": 0, "mma": 1, "tma": 2}
 _TMA_ALIGN = 8                    # elements: TMA takes 16-B strides and bases
@@ -106,8 +106,9 @@ def _check(q, k, v, kv_len):
     dv = v.shape[3]
     if KV == 0 or H % KV:
         raise ValueError(f"{H} q heads are not a multiple of {KV} kv heads")
-    if not (1 <= dq <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"head dims dq={dq} dv={dv} outside 1..{MAX_HEAD_DIM}")
+    if not (1 <= dq <= MAX_DQ and 1 <= dv <= MAX_DV):
+        raise ValueError(f"head dims dq={dq} dv={dv} outside 1..{MAX_DQ} "
+                         f"and 1..{MAX_DV}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
     if not 1 <= kv_len <= Skv:

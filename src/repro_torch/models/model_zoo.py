@@ -58,7 +58,9 @@ class Model:
     # ----------------------------------------------------------------- cache
     def init_cache(self, device="cpu"):
         sp = self.run.shape
-        return tfm.init_cache(self.cfg, sp.global_batch, sp.seq_len, device)
+        enc_len = sp.seq_len if self.cfg.is_encoder_decoder else 0
+        return tfm.init_cache(self.cfg, sp.global_batch, sp.seq_len, device,
+                              enc_len=enc_len)
 
     # ------------------------------------------------------------ step fns
     # Steps run on the runtime's lane threads, and grad mode is per

@@ -69,7 +69,9 @@ def init_params(template, generator: torch.Generator, param_dtype: str,
             std = s.scale * (1.0 / math.sqrt(fan_in) if fan_in else 0.02)
             v = torch.randn(s.shape, generator=generator, device=gdev,
                             dtype=torch.float32)
-            return v.mul_(std).to(device, dt)      # in place: one f32 copy
+            # in place, and rounded where drawn: one f32 copy, and only
+            # the param dtype's bytes cross to ``device``
+            return v.mul_(std).to(dt).to(device)
         raise ValueError(f"unknown init {s.init}")
 
     return _tree.tree_map(mk, template)

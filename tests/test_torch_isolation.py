@@ -15,6 +15,7 @@ sys.modules["jax"] = None          # any `import jax` now raises
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.models.moe" in names, names
 for n in names:
     importlib.import_module(n)
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None

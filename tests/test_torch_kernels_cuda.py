@@ -120,6 +120,46 @@ def test_flash_attention_kernel_takes_strided_inputs():
                                rtol=2e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dq,dv,causal", [
+    (2, 200, 8, 96, 64, True),       # minicpm3's MLA: 64 + 32 / 64
+    (2, 256, 8, 192, 128, True),     # deepseek-v3's MLA: 128 + 64 / 128
+    (1, 130, 4, 192, 128, False),
+    (1, 96, 2, 256, 128, True),      # the kernel's dq limit
+])
+@pytest.mark.parametrize("body", ["f32", "tma", "mma"])
+def test_flash_attention_mla_head_dims_match_plain(B, S, H, dq, dv, causal,
+                                                   body):
+    """dq != dv, up to dq 256, on every body: MLA's k and v have one head
+    per q head."""
+    _card()
+    dtype = torch.float32 if body == "f32" else torch.bfloat16
+    g = torch.Generator().manual_seed(S + dq)
+    q, k, v = (torch.randn(shape, generator=g).to("cuda", dtype)
+               for shape in ((B, S, H, dq), (B, S, H, dq), (B, S, H, dv)))
+    assert kernel._body(q, k, v) == ("f32" if body == "f32" else "tma")
+    before = kernel.launches_by_body[body]
+    got = kernel._flash_attention_fwd(q, k, v, scale=dq ** -0.5,
+                                      causal=causal, body=body)
+    want = ref.attention_ref(q, k, v, scale=dq ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_body[body] == before + 1
+    assert got.shape == (B, S, H, dv)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dq,dv", [(264, 128), (192, 136)])
+def test_flash_attention_kernel_refuses_head_dims_past_its_limits(dq, dv):
+    _card()
+    q, k = (torch.zeros((1, 8, 2, dq), device="cuda") for _ in range(2))
+    v = torch.zeros((1, 8, 2, dv), device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        kernel.flash_attention_fwd(q, k, v, scale=1.0)
+
+
 # ------------------------------------------------------------- selective scan
 def _scan_inputs(Bt, L, di, N, dtype, seed):
     """The reference's ``_scan_args`` draws; x, B, C in ``dtype``, the
@@ -178,6 +218,27 @@ def test_selective_scan_kernel_takes_x_proj_slices():
     proj = torch.randn((2, 50, 8 + 32), device="cuda").to(torch.bfloat16)
     B, C = proj[..., 8:24], proj[..., 24:]
     assert not B.is_contiguous()
+    y, h = sk.selective_scan_fwd(x, dt, A, B, C, D, h0)
+    y_ref, h_ref = sref.selective_scan_ref(x, dt, A, B, C, D, h0)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_ref.float().cpu().numpy(), atol=2e-2,
+                               rtol=2e-2)
+    np.testing.assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_jamba_shape():
+    """jamba-v0.1-52b's mixer: d_inner 8192, N 16, B and C slices of the
+    x_proj output behind a dt_rank of 256."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ref as sref
+    x, dt, A, _, _, D, h0 = _scan_inputs(2, 256, 8192, 16, torch.bfloat16,
+                                         seed=2)
+    proj = torch.randn((2, 256, 256 + 32), device="cuda").to(torch.bfloat16)
+    B, C = proj[..., 256:272], proj[..., 272:]
     y, h = sk.selective_scan_fwd(x, dt, A, B, C, D, h0)
     y_ref, h_ref = sref.selective_scan_ref(x, dt, A, B, C, D, h0)
     torch.cuda.synchronize()

@@ -1,11 +1,15 @@
-"""The port's LMs (dense tinyllama, Mamba-only falcon-mamba) held against
-the JAX package's ``Model`` on the same params (converted from the
-reference's ``init_params``) and the same numpy tokens, at reduced size
-on the CPU in f32.
+"""The port's LMs held against the JAX package's ``Model`` on the same
+params (converted from the reference's ``init_params``) and the same numpy
+tokens, at reduced size on the CPU in f32: dense tinyllama and Mamba-only
+falcon-mamba in depth here, every architecture's template and params, and
+the caches of every cache kind (``tests/test_torch_archs.py`` holds all
+ten architectures' serve and train steps).
 
 Tolerance: 1e-4 absolute on logits and caches of a whole f32 model (the
 two frameworks sum in different orders; measured differences are ~2e-6).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,9 +22,11 @@ from repro.configs.base import ShapeProfile as JShape
 from repro.configs.base import reduced as jreduced
 from repro.data.pipeline import SyntheticLMData
 from repro.models.model_zoo import Model as JModel
+from repro.models.transformer import model_template as jmodel_template
 from repro_torch import _tree
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import RunConfig, ShapeProfile, reduced
+from repro_torch.data.pipeline import SyntheticLMData as TSyntheticLMData
 from repro_torch.models import transformer
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import from_reference
@@ -55,7 +61,6 @@ def _tokens(n):
 
 
 def test_configs_are_copies_of_the_reference():
-    import dataclasses
     from repro.configs import ARCH_IDS as JIDS
     assert ARCH_IDS == JIDS
     for arch in ARCH_IDS:
@@ -63,8 +68,9 @@ def test_configs_are_copies_of_the_reference():
             dataclasses.asdict(jget_config(arch))
 
 
-def test_from_reference_keeps_keys_shapes_and_values():
-    jm, jp, m, p = _pair()
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_from_reference_keeps_keys_shapes_and_values(arch):
+    jm, jp, m, p = _pair(arch=arch)
     jl = jax.tree_util.tree_leaves_with_path(jp)
     assert len(jl) == len(_tree.tree_leaves(p))
     for path, leaf in jl:
@@ -78,6 +84,50 @@ def test_from_reference_keeps_keys_shapes_and_values():
     assert jax.tree.structure(jax.tree.map(lambda s: 0, jm.template,
                                            is_leaf=lambda x: hasattr(x, "axes"))) \
         == jax.tree.structure(_tree.tree_map(lambda s: 0, spec))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-v0.1-52b",
+                                  "seamless-m4t-medium", "deepseek-v3-671b"])
+def test_from_reference_keeps_a_bf16_tree_bit_exact(arch):
+    """A bf16 model's params (the router, the SSM's A_log, dt_bias and D
+    in f32): every leaf keeps the reference's dtype and bits (stacked
+    experts, MLA projections, encoder, cross-attention, MTP head)."""
+    jm, jp, m, p = _pair(arch=arch, param_dtype="bfloat16", dtype="bfloat16")
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        t, a = _leaf(p, path), np.asarray(leaf)
+        assert t.dtype == _tree.from_numpy(a).dtype
+        assert t.dtype == (torch.float32 if a.dtype == np.float32
+                           else torch.bfloat16)
+        np.testing.assert_array_equal(
+            t.view(torch.int16 if t.dtype == torch.bfloat16
+                   else torch.int32).numpy(),
+            a.view(np.int16 if t.dtype == torch.bfloat16 else np.int32))
+    assert _tree.tree_map(lambda t: t.dtype, m.init_params(
+        torch.Generator().manual_seed(0))) == \
+        _tree.tree_map(lambda t: t.dtype, p)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
+def test_bf16_init_is_the_f32_draw_rounded_bit_exact(arch):
+    """``init_params`` rounds each f32 draw to the param dtype before it
+    moves it: every leaf's bits equal the same seed's f32 draw cast by
+    ``.to(device, dtype)`` (the order it replaced), leaves that keep f32
+    (the SSM's) included."""
+    def draw(param_dtype):
+        cfg = reduced(get_config(arch), param_dtype=param_dtype,
+                      dtype=param_dtype)
+        m = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B,
+                                                          "decode")))
+        return m.init_params(torch.Generator().manual_seed(3), device="cpu")
+    p16, p32 = draw("bfloat16"), draw("float32")
+    leaves16, leaves32 = _tree.tree_leaves(p16), _tree.tree_leaves(p32)
+    assert len(leaves16) == len(leaves32)
+    assert any(t.dtype == torch.bfloat16 for t in leaves16)
+    for t, f in zip(leaves16, leaves32):
+        want = f.to("cpu", t.dtype)
+        bits = torch.int16 if t.dtype == torch.bfloat16 else torch.int32
+        assert torch.equal(t.view(bits), want.view(bits))
 
 
 def test_from_reference_bfloat16_is_bit_exact():
@@ -183,10 +233,12 @@ def test_decode_prefill_consistency_dense():
 
 def _caches_handed_in_are_never_written(arch):
     _, _, m, p = _pair(arch=arch)
+    batch = TSyntheticLMData(m.cfg, ShapeProfile("t", S, B, "train")).batch(0)
+    batch = {k: v[:, :8] if k == "tokens" else v
+             for k, v in batch.items() if k != "labels"}
     cache = m.init_cache()
     before = _tree.tree_map(torch.clone, cache)
-    logits, c1 = m.prefill(p, {"tokens": torch.from_numpy(_tokens(8))},
-                           cache)
+    logits, c1 = m.prefill(p, batch, cache)
     snap = _tree.tree_map(torch.clone, c1)
     m.decode_step(p, torch.argmax(logits, -1).to(torch.int32), c1)
     for a, b in ((cache, before), (c1, snap)):
@@ -204,9 +256,40 @@ def test_mamba_caches_handed_in_are_never_written():
     _caches_handed_in_are_never_written("falcon-mamba-7b")
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "minicpm3-4b",
-                                  "qwen2-moe-a2.7b", "seamless-m4t-medium"])
-def test_unported_architectures_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError):
-        Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B, "decode")))
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "seamless-m4t-medium",
+                                  "jamba-v0.1-52b"])
+def test_mla_cross_and_hybrid_caches_handed_in_are_never_written(arch):
+    """MLA's latent caches, the cross-attention caches beside the decoder's
+    KV caches, and the hybrid's Mamba and KV caches in one model."""
+    _caches_handed_in_are_never_written(arch)
+
+
+def _template_leaves(tree):
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        else:
+            out[path] = dataclasses.astuple(t)
+    walk(tree, ())
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_architecture_builds_the_reference_template(arch):
+    """The full config's template: the reference's keys, and for each leaf
+    its shape, logical axes, init, scale, fan-in axis and dtype."""
+    cfg = get_config(arch)
+    assert _template_leaves(transformer.model_template(cfg)) == \
+        _template_leaves(jmodel_template(jget_config(arch)))
+
+
+def test_manual_ep_moe_raises():
+    """The expert all-to-all waits for the multi-device work."""
+    _, _, m, p = _pair(arch="qwen2-moe-a2.7b",
+                       run_kw={"moe_impl": "manual_ep"})
+    with pytest.raises(NotImplementedError, match="all_to_all"):
+        m.prefill(p, {"tokens": torch.from_numpy(_tokens(8))},
+                  m.init_cache())
