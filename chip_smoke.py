@@ -95,7 +95,26 @@ each phase's wall time printed:
      gave a kernel is held against the plain version: those the plan
      above did not check (a second serve batch's prompt length, a
      FrontDoor flush's rows) are checked here, and a key left unchecked
-     fails the run.
+     fails the run;
+  15. (run after phase 13) the explorer's dispatch seam driving the real
+     runtime on the card: one EmeraldRuntime (cloud tier on the card,
+     ``max_workers=2``) takes three tenants' adjoint-tomography
+     iterations at Fig 11 (phase 5's observations and starting model,
+     policy "annotate") under a last-submitted-first ``dispatch_hook`` and
+     then a seeded pick (``random.Random``); each tenant's misfit and
+     updated model equal a solo run's bitwise; per tenant the hook calls,
+     offloads, bytes up and down and wall time; the runtime's live
+     ``introspect()`` snapshot rendered by ``repro_torch.tools.emtop``;
+  14. (run last) the sanitizer's summary. Every path through the Emerald
+     runtime (phases 3, 3b, 5's four arms, 6, 7, 8, 8b, 10a-e, 11a-f and
+     15's runs) runs inside ``repro_torch.analysis.sanitizer.
+     record_submissions()``: when the path ends, before its memory is
+     freed, each run's event log (H101-H103) and each store's replica log
+     (H110-H111) are replayed, and the runs, events, installs logged out
+     of ``installs_total`` (H111 is judged only on an untrimmed log),
+     findings and the verifier rule ids admission attached are printed.
+     A finding fails the run at its path; phase 14 fails unless every
+     one of those paths was replayed.
 
 Phase 2 also holds each kernel at the train shapes (flash B=2, S=2048,
 H=32, KV=4, d=64; the scan Bt=2, L=1024, di=8192, N=16; bf16), forward
@@ -138,6 +157,7 @@ LONG_PROMPT = 2048      # the serve profile's full prompt (ShapeProfile)
 AT_ITERS = 3            # timed adjoint-tomography iterations per arm
 AT_RTOL = 1e-5          # local vs offloaded (tests/test_at.py)
 FD_REQUESTS, FD_CLIENTS, FD_WINDOW = 64, 16, 128
+TENANT_SEED = 0         # phase 15's seeded dispatch hook
 # FrontDoor rows (bf16 logits, batched) against the same window alone:
 # the bf16 bounds PERF.md uses card against CPU
 FD_REL_TOL = 2e-2
@@ -671,15 +691,88 @@ def watch_launch_shapes():
     fa.flash_attention_fwd, ss.selective_scan_fwd = fa_watched, ss_watched
 
 
-def on_path(path, fn):
-    """``fn`` with ``path`` named as the main path it drives."""
+def on_path(path, fn, runtime=True):
+    """``fn`` with ``path`` named as the main path it drives; a path
+    through the Emerald runtime also runs under the sanitizer."""
+    inner = sanitized(path, fn) if runtime else fn
+
     def drive(*args):
         _PATH[0] = path
         try:
-            return fn(*args)
+            return inner(*args)
         finally:
             _PATH[0] = None
     return drive
+
+
+# ------------------------------------------- the sanitizer over each path
+SANITIZED = []      # one record per runtime path, in the order driven
+
+
+def sanitized(path, fn):
+    """``fn`` run inside ``sanitizer.record_submissions()``. When it
+    returns, every run it submitted and each store it used are replayed
+    through the happens-before sanitizer (H101-H103 on each run's event
+    log, H110-H111 on each store's replica log) before the path's memory
+    is freed; the counts are printed and a finding fails the run."""
+    def drive(*args):
+        from repro_torch.analysis import sanitizer
+        with sanitizer.record_submissions() as rec:
+            out = fn(*args)
+        logged, total = rec.install_log()
+        admission = {}
+        for r in rec.runs:
+            for rule in r.admission_rules:
+                admission[rule] = admission.get(rule, 0) + 1
+        entry = {"path": path, "submissions": len(rec.runs),
+                 "still_running": rec.skipped, "events": rec.events,
+                 "distinct_events": rec.distinct_events,
+                 "stores": len(rec.stores), "installs_logged": logged,
+                 "installs_total": total, "h111_judged": logged == total,
+                 "findings": [str(f) for f in rec.findings],
+                 "admission_rules": admission}
+        SANITIZED.append(entry)
+        print("  sanitizer " + json.dumps(entry), flush=True)
+        if rec.findings:            # the event rows of the steps named
+            steps = {s for f in rec.findings for s in f.steps}
+            for i, r in enumerate(rec.runs):
+                for e in r.events:
+                    if e.step in steps:
+                        print(f"  hazard row: run {i} ({r.state}) "
+                              f"{e.kind} {e.step} {e.tier} t={e.t!r} "
+                              f"{e.info}", flush=True)
+        check(entry["submissions"] > 0,
+              f"{path}: {entry['submissions']} runs replayed through the "
+              f"sanitizer ({entry['events']} events)")
+        check(not rec.findings,
+              f"{path}: no happens-before hazard"
+              + (f"; found: {entry['findings']}" if rec.findings else ""))
+        return out
+    return drive
+
+
+def phase_sanitizer(expected):
+    """Phase 14: the summary of every runtime path's replay; fails unless
+    each path in ``expected`` was replayed, once, with no finding."""
+    print("== phase 14: the sanitizer over every runtime path on the card",
+          flush=True)
+    for e in SANITIZED:
+        judged = "judged" if e["h111_judged"] else "not judged (log trimmed)"
+        print(f"  {e['path']}: {e['submissions']} runs, {e['events']} "
+              f"events ({e['distinct_events']} distinct), installs "
+              f"{e['installs_logged']} logged of {e['installs_total']}, "
+              f"H111 {judged}, "
+              f"{len(e['findings'])} findings, admission "
+              f"{e['admission_rules'] or 'none'}", flush=True)
+    seen = [e["path"] for e in SANITIZED]
+    check(sorted(seen) == sorted(expected),
+          f"the {len(expected)} runtime paths each replayed once"
+          + (f"; replayed {seen}, expected {expected}"
+             if sorted(seen) != sorted(expected) else ""))
+    runs = sum(e["submissions"] for e in SANITIZED)
+    check(not any(e["findings"] for e in SANITIZED),
+          f"0 sanitizer findings over {runs} runs and "
+          f"{sum(e['events'] for e in SANITIZED)} events")
 
 
 def phase_launched_shapes():
@@ -1015,8 +1108,12 @@ def phase_at(cfg):
     print(f"  observations {tuple(obs.shape)} in "
           f"{time.perf_counter() - t:.3f} s", flush=True)
     reset_counters()
-    local, lchis, lmodel, _, _ = at_arm(cfg, obs, "never")
-    off, ochis, omodel, omdss, _ = at_arm(cfg, obs, "annotate")
+    local, lchis, lmodel, _, _ = sanitized(
+        f"adjoint tomography {cfg.mesh_name} local", at_arm)(
+        cfg, obs, "never")
+    off, ochis, omodel, omdss, _ = sanitized(
+        f"adjoint tomography {cfg.mesh_name} offloaded", at_arm)(
+        cfg, obs, "annotate")
     launches, _ = read_counters()
     profile = at_kernel_profile(cfg, obs)
     rec = {"mesh": cfg.mesh_name, "local": local, "offloaded": off,
@@ -1120,6 +1217,107 @@ def phase_at_fabric(cfg, offloaded):
           f"(workers were {pids})")
     check(not any(launches.values()),
           f"no kernel launched on this path: {launches}")
+
+
+def phase_tenants(cfg, fig11):
+    """Phase 15: the explorer's dispatch seam driving the real runtime on
+    the card. Three tenants each submit one AT iteration (phase 5's
+    observations and starting model, policy "annotate") to one runtime
+    with ``max_workers=2`` under a ``dispatch_hook``: last-submitted-first,
+    then a seeded pick. Each tenant's misfit and updated model must equal
+    a solo run's bitwise, and every run replays clean (``sanitized``).
+    Returns the names of the paths it drove."""
+    print(f"== phase 15: three tenants' adjoint tomography {cfg.mesh_name} "
+          f"through dispatch hooks on the card", flush=True)
+    import random
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    import torch
+    from repro_torch.apps import adjoint_tomography as at
+    from repro_torch.core import EmeraldRuntime, partition
+    from repro_torch.tools.emtop import render
+    wf = partition(at.build_workflow(cfg))
+
+    def inputs():
+        return {"model": at.starting_model(cfg, "cpu"), "obs": fig11["obs"]}
+
+    def solo_run():
+        mgr, _ = emerald_manager()
+        check(mgr.tiers["cloud"].device.type == "cuda",
+              "cloud tier on the card")
+        with EmeraldRuntime(mgr, max_workers=2, policy="annotate") as rt:
+            t = time.perf_counter()
+            out = rt.submit(wf, inputs()).result(300)
+            return out, time.perf_counter() - t
+
+    solo, solo_s = sanitized(f"adjoint tomography {cfg.mesh_name} solo",
+                             solo_run)()
+    print(f"  solo iteration: chi {float(solo['chi'])!r} in {solo_s:.3f} s; "
+          f"chi equals phase 5's first offloaded iteration bitwise: "
+          f"{torch.equal(solo['chi'].cpu(), fig11['chis'][0].cpu())}",
+          flush=True)
+
+    def tenants(pick):
+        calls = []
+
+        def hook(lane, run_ids):
+            chosen = pick(run_ids)
+            calls.append(chosen)
+            return chosen
+
+        mgr, _ = emerald_manager()
+        with EmeraldRuntime(mgr, max_workers=2, policy="annotate",
+                            dispatch_hook=hook) as rt, Pool(3) as pool:
+            futs, handles = [], []
+            for _ in range(3):
+                t = time.perf_counter()
+                h = rt.submit(wf, inputs())
+                handles.append(h)
+                futs.append(pool.submit(
+                    lambda h=h, t=t: (h.result(300),
+                                      time.perf_counter() - t)))
+            snap = rt.introspect()
+            outs = [f.result() for f in futs]
+            moved = {f"{a}->{b}": n for (a, b), n in
+                     rt.mdss.bytes_moved.items()}
+        per = []
+        for h, (out, wall) in zip(handles, outs):
+            offl = [e for e in h.events if e.kind == "offload"]
+            per.append({
+                "run": h.run_id, "hook_calls": calls.count(h.run_id),
+                "offloads": len(offl),
+                "bytes_up": sum(e.info.get("bytes_in", 0) for e in offl),
+                "bytes_down": sum(e.info.get("bytes_out", 0) for e in offl),
+                "wall_s": wall,
+                "chi_equal": torch.equal(out["chi"].cpu(),
+                                         solo["chi"].cpu()),
+                "model_equal": torch.equal(out["model"].cpu(),
+                                           solo["model"].cpu())})
+        return per, len(calls), moved, snap
+
+    rng = random.Random(TENANT_SEED)
+    hooks = {"last-submitted-first": lambda ids: ids[-1],
+             f"seeded pick (random.Random({TENANT_SEED}))": rng.choice}
+    paths = [f"adjoint tomography {cfg.mesh_name} solo"]
+    for name, pick in hooks.items():
+        paths.append(f"adjoint tomography {cfg.mesh_name} x3 tenants, {name}")
+        per, n_calls, moved, snap = sanitized(paths[-1], tenants)(pick)
+        print(f"  hook {name}: {n_calls} calls; MDSS bytes {moved}",
+              flush=True)
+        for rec in per:
+            print("  tenant " + json.dumps(rec), flush=True)
+        check(n_calls > 0 and sum(r["hook_calls"] for r in per) == n_calls,
+              f"{name}: the hook chose each of its {n_calls} dispatches")
+        check(all(r["offloads"] == 3 for r in per),
+              f"{name}: 3 offloads (steps 2-4) per tenant")
+        check(all(r["chi_equal"] and r["model_equal"] for r in per),
+              f"{name}: each tenant's chi and updated model equal the solo "
+              f"run's bitwise")
+    lines = render(snap).splitlines()
+    for line in lines[:16]:
+        print(f"  emtop| {line}", flush=True)
+    check(lines[0].startswith("emerald runtime") and "RUNS" in lines,
+          "emtop renders the runtime's live snapshot")
+    return paths
 
 
 def phase_frontdoor(cfg, run):
@@ -1709,7 +1907,8 @@ def zoo_paths(plan):
             f"10{'abcde'[i]}", zcfg, zrun, zreqs, zoo_launches(zcfg), cut))
     path = f"serve {ecfg.name}"
     add_path(path, timed(
-        "phase 10f", on_path(path, phase_serve_encdec), "10f", ecfg, erun,
+        "phase 10f", on_path(path, phase_serve_encdec, runtime=False),
+        "10f", ecfg, erun,
         e_prompt, ZOO_SERVE_NEW))
     for i, (zcfg, zrun) in enumerate(plan["train"]):
         path = f"train {zcfg.name}"
@@ -1805,7 +2004,9 @@ def main() -> int:
           "the paper's Fig 11 and Fig 12 meshes, nt=200, 16 receivers")
     fig11 = timed("phase 5 (Fig 11)", phase_at, FIG11)
     timed("phase 5 (Fig 12)", phase_at, FIG12)
-    timed("phase 6", phase_at_fabric, FIG11, fig11)
+    timed("phase 6", sanitized(f"adjoint tomography {FIG11.mesh_name} "
+                               f"offloaded, fabric", phase_at_fabric),
+          FIG11, fig11)
     fd_launches = timed("phase 7", on_path("frontdoor tinyllama-1.1b",
                                            phase_frontdoor), cfg, run)
 
@@ -1844,6 +2045,16 @@ def main() -> int:
           and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
           "the jamba serve path launched both kernels")
     unplanned = timed("phase 13", phase_launched_shapes)
+    tenant_paths = timed("phase 15", phase_tenants, FIG11, fig11)
+    meshes = [f"adjoint tomography {c.mesh_name}" for c in (FIG11, FIG12)]
+    timed("phase 14", phase_sanitizer, [
+        "serve tinyllama-1.1b", "serve falcon-mamba-7b",
+        *(f"{m} {arm}" for m in meshes for arm in ("local", "offloaded")),
+        f"{meshes[0]} offloaded, fabric", "frontdoor tinyllama-1.1b",
+        "train tinyllama-1.1b", "train falcon-mamba-7b",
+        *(f"serve {zcfg.name}" for zcfg, _, _ in plan["serve"]),
+        *(f"train {zcfg.name}" for zcfg, _ in plan["train"]),
+        *tenant_paths])
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype", "profiler_ms",

@@ -80,8 +80,8 @@ def verify(wf: Workflow, *, provided: Optional[Iterable[str]] = None,
     ``provided``: URIs bound at submission (init_vars + resident data);
     ``None`` = static context (see module doc). ``tiers`` /
     ``capacity_bytes`` ground the residency-budget feasibility check;
-    ``registry`` is the fabric step registry W004 checks names against
-    (the port has no default registry until the fabric is ported).
+    ``registry`` overrides the fabric step registry for W004 (defaults
+    to ``repro_torch.cloud.tasklib.STEP_REGISTRY``).
     """
     out: List[Finding] = []
     top = wf.toplevel()
@@ -217,7 +217,11 @@ def verify(wf: Workflow, *, provided: Optional[Iterable[str]] = None,
                 steps=(s.name,), where=s.defined_at))
         if s.remote_impl:
             reg = registry
-            if reg is not None and s.remote_impl not in reg:
+            if reg is None:
+                # imported here: the fabric package imports the core,
+                # whose runtime imports this module
+                from repro_torch.cloud.tasklib import STEP_REGISTRY as reg
+            if s.remote_impl not in reg:
                 out.append(finding(
                     F.W004,
                     f"step {s.name} names remote_impl "

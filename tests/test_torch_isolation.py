@@ -15,7 +15,11 @@ sys.modules["jax"] = None          # any `import jax` now raises
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
-assert "repro_torch.models.moe" in names, names
+assert {"repro_torch.models.moe", "repro_torch.analysis.sanitizer",
+        "repro_torch.analysis.explorer", "repro_torch.analysis.selfcheck",
+        "repro_torch.cloud.simfabric", "repro_torch.tools.emlint",
+        "repro_torch.tools.emcheck", "repro_torch.tools.emtop"} <= set(names), \
+    names
 for n in names:
     importlib.import_module(n)
 leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
@@ -74,4 +78,29 @@ def test_worker_side_imports_without_torch():
     res = subprocess.run([sys.executable, "-c", _WORKER_WITHOUT_TORCH],
                          env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
+_TOOLS_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["repro"] = None        # and so does the JAX package
+from repro_torch.tools import emcheck, emlint
+assert emlint.main(["--self"]) == 0
+assert emcheck.main(["--model", "frontdoor", "--max-hazards", "1",
+                     "--bug", "parked_starved", "-q"]) == 1
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_analysis_tools_run_without_jax_or_the_reference():
+    """``emlint --self`` lints the port and ``emcheck`` finds a planted
+    bug with neither jax nor ``repro`` importable."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _TOOLS_WITHOUT_JAX], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.split()[-1] == "ok"
