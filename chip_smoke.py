@@ -96,6 +96,26 @@ each phase's wall time printed:
      above did not check (a second serve batch's prompt length, a
      FrontDoor flush's rows) are checked here, and a key left unchecked
      fails the run;
+  16. (run before phase 13) multi-device training on the card. 16a: a
+     world-1 NCCL process group and a (pod 1, data 1, model 1) mesh;
+     tinyllama-1.1b at its full config, phase 8's train shape (2048 x 4)
+     in one batch, the same seeded params, AdamW f32 state and batch: the
+     plain ``Model.train_step``, then ``multipod_train_step`` with the
+     ``none``, ``bf16`` and ``int8`` wire formats and
+     ``pipeline_train_step(n_micro=2)``, each held against the plain step
+     (loss within 1e-3, the pipeline's xent within 2e-3, ``none``'s loss
+     within rel 1e-4, every run's grad_norm within rel 1e-4, bf16's 2^-7,
+     int8's 1e-2, params within one AdamW step's reach), with s/step,
+     peak device GB, flash launches and shape keys, and the bytes handed
+     to collectives by op and dtype (int8's all-gather: the int8 tensors
+     and f32 scales only). 16b: those params saved from that mesh and
+     restored onto ``make_host_mesh()`` with the fsdp placements, every
+     leaf bitwise, the metadata equal. 16c: two gloo processes on cuda:0
+     (``chip_smoke.py --rank16c``): int8 over (pod 2) on reduced
+     tinyllama, and qwen2-moe-a2.7b at full width, 2 of 24 layers, over
+     (data 2) with ``moe_impl="manual_ep"`` (the experts exchanged by
+     ``all_to_all``, AdamW bf16 state so that two fit one card), each
+     against the plain step on the card;
   15. (run after phase 13) the explorer's dispatch seam driving the real
      runtime on the card: one EmeraldRuntime (cloud tier on the card,
      ``max_workers=2``) takes three tenants' adjoint-tomography
@@ -654,6 +674,7 @@ def read_counters():
 LAUNCHED = {"flash_attention_fwd": {}, "selective_scan_fwd": {}}
 CHECKED = {"flash_attention_fwd": set(), "selective_scan_fwd": set()}
 _PATH = [None]      # the main path being driven, None between paths
+FA_SEEN = set()     # flash shape keys launched since the last clear
 
 
 def fa_key(B, S, Skv, H, KV, dq, dv, dtype_name, causal, kv_len, body):
@@ -676,9 +697,10 @@ def watch_launch_shapes():
     def fa_watched(q, k, v, *, scale, causal=True, kv_len=None):
         if _PATH[0]:
             (B, S, H, dq), (_, Skv, KV, dv) = q.shape, v.shape
-            LAUNCHED["flash_attention_fwd"].setdefault(fa_key(
-                B, S, Skv, H, KV, dq, dv, dtype_name_of(q), causal, kv_len,
-                fa._body(q, k, v)), _PATH[0])
+            key = fa_key(B, S, Skv, H, KV, dq, dv, dtype_name_of(q), causal,
+                         kv_len, fa._body(q, k, v))
+            LAUNCHED["flash_attention_fwd"].setdefault(key, _PATH[0])
+            FA_SEEN.add(key)
         return fa_fwd(q, k, v, scale=scale, causal=causal, kv_len=kv_len)
 
     def ss_watched(x, dt, A, B, C, D, h0):
@@ -1935,6 +1957,400 @@ def timed(name, fn, *args):
     return out
 
 
+# ------------------------------------------- multi-device steps on the card
+# With one card, the multi-device steps run on a real NCCL group of world
+# size 1 (16a, 16b; NCCL takes one process per device), and two gloo
+# processes share the card (16c). Every run is held against the plain
+# step by:
+#   * the reference tests' loss bounds: 1e-3 (tests/test_grad_compress.py),
+#     the pipeline's xent 2e-3 (tests/test_pipeline.py);
+#   * its pre-clip grad_norm (the loss is taken before any sync, so this is
+#     what sees the synced gradients), at rel 1e-4 where the arithmetic is
+#     the plain step's up to f32 order (none, the pipeline, manual EP); bf16
+#     rounds each element to within 2^-8 of itself, so its norm moves by at
+#     most 2^-8 (rel) at one process, and the bound is twice that; int8
+#     rounds each element to within its leaf's max/254, which measured
+#     1.5e-3 on full tinyllama-1.1b at one process and 1.4e-4 on 16c
+#     (NVIDIA H100 80GB HBM3, 700.00 W), and the bound is 1e-2: a sync that
+#     kept each pod's own gradients (35% above the mean's norm on the CPU
+#     tests' reduced tinyllama) or dropped the 1/n would miss it;
+#   * its params, within one AdamW step's reach of the plain step's: a
+#     first step moves an element by at most lr whatever its gradient, so
+#     two steps differ by at most 2 lr and the rounding of the stored value
+#     (this holds the update's size and its lr, not the gradients).
+MP_LOSS_TOL, PP_XENT_TOL, MP_NONE_RTOL = 1e-3, 2e-3, 1e-4
+GN_RTOL = {"none": MP_NONE_RTOL, "bf16": 2.0 ** -7, "int8": 1e-2,
+           "pipeline": 1e-4, "manual_ep": 1e-4}
+RANK_TIMEOUT = 420       # seconds for phase 16c's two processes
+
+
+def max_leaf_diff(a, b):
+    from repro_torch._tree import tree_leaves
+    return max(float((x.float() - y.to(x.device).float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def adamw_first_step_ratio(a, b, lr):
+    """The largest |a - b| of two params trees after one AdamW step from
+    the same params, over its bound 2 lr plus the rounding of the stored
+    values; at most 1 when both steps applied lr to unit updates."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    ratio = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        y = y.to(x.device)
+        bound = 2 * lr * (1 + 1e-5) + torch.finfo(y.dtype).eps * (
+            y.float().abs() + 2 * lr)
+        ratio = max(ratio, float(((x.float() - y.float()).abs()
+                                  / bound).max()))
+    return ratio
+
+
+def int8_wire_ok(byte_counts, params):
+    """int8's all-gather hands over the int8 tensors and one f32 scale
+    per leaf, nothing else (``byte_counts``: bytes by "op/dtype")."""
+    from repro_torch._tree import tree_leaves
+    leaves = tree_leaves(params)
+    gathered = {k: v for k, v in byte_counts.items()
+                if k.startswith("all_gather")}
+    return gathered == {"all_gather/int8": sum(x.numel() for x in leaves),
+                        "all_gather/float32": 4 * len(leaves)}
+
+
+def multidevice_run(label, path, step, args, plain, plain_params, want,
+                    gn_rtol, body="tma", gather=None):
+    """One multi-device step on the main path ``path``: its wall time,
+    peak device bytes, kernel launches (``want``, flash on ``body``) and
+    the shape keys they had, the bytes handed to collectives, and its
+    distance to the plain step: grad_norm within rel ``gn_rtol``, params
+    within one AdamW step's reach."""
+    import torch
+    from repro_torch.parallel import _collectives as coll
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    coll.reset_counts()
+    FA_SEEN.clear()
+    _PATH[0] = path
+    try:
+        t0 = time.perf_counter()
+        p2, opt2, m = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        _PATH[0] = None
+    del opt2
+    launches, by_body = read_counters()
+    counts = coll.counts()
+    peak = torch.cuda.max_memory_allocated()
+    if gather is not None:
+        p2 = gather(p2)
+    m = {k: float(v) for k, v in m.items()}
+    rec = {"run": label, "path": path, "s_per_step": wall,
+           "peak_device_gb": peak / 1e9, "metrics": m,
+           "loss_diff": abs(m["loss"] - plain["loss"]),
+           "xent_diff": abs(m["xent"] - plain["xent"]),
+           "loss_rel": abs(m["loss"] - plain["loss"]) / abs(plain["loss"]),
+           "grad_norm_rel": abs(m["grad_norm"] - plain["grad_norm"])
+           / plain["grad_norm"],
+           "max_param_diff": max_leaf_diff(p2, plain_params),
+           "param_diff_over_adamw_bound": adamw_first_step_ratio(
+               p2, plain_params, plain["lr"]),
+           "launches": launches, "flash_launches_by_body": by_body,
+           "shape_keys": sorted(list(k) for k in FA_SEEN),
+           "collective_bytes": counts["bytes"],
+           "collective_calls": counts["calls"], "card": card_line()}
+    print("  multidevice " + json.dumps(rec), flush=True)
+    check(launches == want and by_body[body] == want["flash_attention_fwd"],
+          f"{label}: launches {launches} = {want}, flash on the {body} "
+          f"body")
+    check(all(math.isfinite(v) for v in m.values()),
+          f"{label}: finite metrics {m}")
+    check(rec["grad_norm_rel"] <= gn_rtol,
+          f"{label}: grad_norm within rel {gn_rtol:.3e} of the plain "
+          f"step's ({rec['grad_norm_rel']:.3e})")
+    check(rec["param_diff_over_adamw_bound"] <= 1.0,
+          f"{label}: params within one AdamW step's reach of the plain "
+          f"step's (max diff {rec['max_param_diff']:.3e}, "
+          f"{rec['param_diff_over_adamw_bound']:.4f} of 2 lr + rounding)")
+    del p2
+    return rec
+
+
+def phase_multidevice(cfg, run):
+    """Phase 16a (the compressed-sync and pipelined steps of full-width
+    tinyllama-1.1b on a world-1 NCCL mesh, each against the plain step)
+    and 16b (its params saved from that mesh and restored elastically
+    onto the host mesh with the fsdp placements)."""
+    print("== phase 16a: multi-device train steps of tinyllama-1.1b (full "
+          "config) on a world-1 NCCL mesh (pod 1, data 1, model 1)",
+          flush=True)
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import to_device, tree_leaves
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.optim.grad_compress import multipod_train_step
+    from repro_torch.parallel.pipeline import (gather_stages,
+                                               pipeline_train_step,
+                                               split_stages)
+    from repro_torch.parallel.sharding import distribute_tree
+    model = Model(run)
+    recs = []
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                rank=0, world_size=1,
+                                device_id=torch.device("cuda:0"))
+        try:
+            mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+            check(dist.get_backend() == "nccl" and mesh.shape ==
+                  {"pod": 1, "data": 1, "model": 1},
+                  f"NCCL process group, mesh {mesh.shape}")
+            params = model.init_params(torch.Generator(
+                device="cuda").manual_seed(0), device="cuda")
+            opt = model.opt_init(params)
+            batch = to_device(SyntheticLMData(cfg, run.shape, seed=0)
+                              .batch(0), "cuda")
+            t0 = time.perf_counter()
+            plain_p, plain_opt, pm = model.train_step(params, opt, batch)
+            del plain_opt           # only its params are compared
+            torch.cuda.synchronize()
+            plain = {k: float(v) for k, v in pm.items()}
+            print(f"  plain step {json.dumps(plain)} in "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            want = train_launches(cfg)
+            for method in ("none", "bf16", "int8"):
+                rec = multidevice_run(
+                    f"multipod {method}", f"16a multipod {method}",
+                    multipod_train_step(model, mesh, method),
+                    (params, opt, batch), plain, plain_p, want,
+                    GN_RTOL[method])
+                check(rec["loss_diff"] <= MP_LOSS_TOL,
+                      f"multipod {method}: loss within {MP_LOSS_TOL} of "
+                      f"the plain step ({rec['loss_diff']:.3e})")
+                recs.append(rec)
+            check(recs[0]["loss_rel"] <= MP_NONE_RTOL,
+                  f"multipod none: loss within rel {MP_NONE_RTOL} "
+                  f"({recs[0]['loss_rel']:.3e})")
+            check(int8_wire_ok(recs[2]["collective_bytes"], params),
+                  f"int8 hands only int8 tensors and f32 scales to the "
+                  f"all-gather: {recs[2]['collective_bytes']}")
+            n_micro = 2
+            rec = multidevice_run(
+                f"pipeline n_micro={n_micro}", "16a pipeline",
+                pipeline_train_step(model, mesh, n_micro),
+                (split_stages(params, mesh), split_stages(opt, mesh), batch),
+                plain, plain_p, train_launches(cfg, n_micro),
+                GN_RTOL["pipeline"], gather=lambda p: gather_stages(p, mesh))
+            check(rec["xent_diff"] <= PP_XENT_TOL,
+                  f"pipeline: xent within {PP_XENT_TOL} of the plain step "
+                  f"({rec['xent_diff']:.3e})")
+            check(rec["collective_calls"].get("ppermute", 0) > 0,
+                  f"pipeline: the pipe rotated by ppermute "
+                  f"({rec['collective_calls']})")
+            recs.append(rec)
+            del plain_p, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            print("== phase 16b: elastic restore of tinyllama-1.1b's params "
+                  "onto the host mesh (fsdp placements)", flush=True)
+            t0 = time.perf_counter()
+            ck = Checkpointer(os.path.join(tmp, "ck"))
+            ck.save("tinyllama", 1, distribute_tree(
+                params, model.param_shardings(mesh)),
+                topology={"mesh": mesh.shape})
+            t_save = time.perf_counter() - t0
+            host = make_host_mesh()
+            shardings = model.param_shardings(host)
+            t0 = time.perf_counter()
+            tree, meta = ck.restore("tinyllama", model.abstract_params(),
+                                    shardings=shardings)
+            t_restore = time.perf_counter() - t0
+            leaves = tree_leaves(tree)
+            same = all(a.full_tensor().dtype == b.dtype and torch.equal(
+                a.full_tensor().view(torch.int16), b.view(torch.int16))
+                for a, b in zip(leaves, tree_leaves(params))
+                if b.dtype == torch.bfloat16) and all(
+                torch.equal(a.full_tensor(), b)
+                for a, b in zip(leaves, tree_leaves(params)))
+            placed = {str(s.placements) for s in tree_leaves(shardings)}
+            rb = {"save_s": t_save, "restore_s": t_restore,
+                  "leaves": len(leaves), "meta": meta,
+                  "placements": sorted(placed),
+                  "device": str(leaves[0].to_local().device)}
+            print("  restore " + json.dumps(rb, default=str), flush=True)
+            check(same and leaves[0].to_local().is_cuda,
+                  f"{len(leaves)} leaves restored on the card, every one "
+                  f"bitwise the saved one")
+            check(meta["step"] == 1 and meta["topology"] == {
+                "mesh": mesh.shape}, f"metadata kept: {meta}")
+            del tree, leaves, params
+        finally:
+            dist.destroy_process_group()
+    return recs
+
+
+# 16c: two gloo processes on the one card
+def rank_16c(rank, world, workdir):
+    """One of phase 16c's two processes (``chip_smoke.py --rank16c R W
+    DIR``): the int8 multipod step of reduced tinyllama over (pod 2) and
+    qwen2-moe-a2.7b's manual-EP step over (data 2), each against the plain
+    step; writes its records and the shape keys it launched."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import to_device
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.optim.grad_compress import multipod_train_step
+    sys.stdout = open(os.path.join(workdir, f"rank{rank}.out"), "w")
+    torch.cuda.set_device(0)
+    for mod in kernel_counters().values():
+        mod.build()
+    watch_launch_shapes()
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT))
+    out = []
+    try:
+        # (i) int8 over (pod 2), reduced tinyllama, f32
+        cfg, run = train_run("tinyllama-1.1b", 16, 8, small=True)
+        run = run.with_(remat="none", model=dataclasses.replace(cfg,
+                                                                n_layers=2))
+        cfg = run.model
+        model = Model(run)
+        params = model.init_params(torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda")
+        opt = model.opt_init(params)
+        batch = to_device(SyntheticLMData(cfg, run.shape).batch(0), "cuda")
+        plain_p, _, pm = model.train_step(params, opt, batch)
+        plain = {k: float(v) for k, v in pm.items()}
+        mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), "cuda")
+        rec = multidevice_run(
+            "multipod int8, pod 2 (gloo, 2 processes)",
+            "16c multipod int8 tinyllama (reduced)",
+            multipod_train_step(model, mesh, "int8"), (params, opt, batch),
+            plain, plain_p, {"flash_attention_fwd": 2,
+                             "selective_scan_fwd": 0}, GN_RTOL["int8"],
+            body="f32")
+        rec["int8_wire_ok"] = int8_wire_ok(rec["collective_bytes"], params)
+        out.append(rec)
+        del params, opt, plain_p
+        # (ii) qwen2-moe at full width, 2 layers: the expert all-to-all
+        cfg, run = train_run("qwen2-moe-a2.7b", 1024, 2, n_layers=2)
+        run = run.with_(moe_impl="manual_ep", opt_state_dtype="bfloat16")
+        model = Model(run)
+        params = model.init_params(torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda")
+        opt = model.opt_init(params)
+        batch = to_device(SyntheticLMData(cfg, run.shape).batch(0), "cuda")
+        # on the host: compared leaf by leaf, it costs the card nothing
+        ref = torch.load(os.path.join(workdir, "moe_plain.pt"),
+                         map_location="cpu", weights_only=False)
+        mesh = make_mesh((1, 2, 1), ("pod", "data", "model"), "cuda")
+        rec = multidevice_run(
+            "manual-EP step, data 2 (gloo, 2 processes)",
+            "16c manual-EP qwen2-moe-a2.7b",
+            multipod_train_step(model, mesh, "none"), (params, opt, batch),
+            ref["metrics"], ref["params"], train_launches(cfg),
+            GN_RTOL["manual_ep"])
+        out.append(rec)
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump({"records": out, "launched": [
+                [list(k), p] for k, p in
+                LAUNCHED["flash_attention_fwd"].items()]}, f)
+    return 0
+
+
+def phase_two_processes():
+    """Phase 16c: two gloo processes on the one card. The plain step of
+    qwen2-moe-a2.7b (2 layers, AdamW bf16 state: two processes with f32
+    state would not fit one card) runs here first; the processes' launched
+    shape keys join phase 13's."""
+    print("== phase 16c: two gloo processes on cuda:0: int8 multipod "
+          "(pod 2, reduced tinyllama) and the expert all-to-all (data 2, "
+          "qwen2-moe-a2.7b at full width, 2 of 24 layers)", flush=True)
+    import tempfile
+    import torch
+    from repro_torch._tree import to_device
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_zoo import Model
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, run = train_run("qwen2-moe-a2.7b", 1024, 2, n_layers=2)
+        run = run.with_(moe_impl="manual_ep", opt_state_dtype="bfloat16")
+        model = Model(run)
+        params = model.init_params(torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda")
+        batch = to_device(SyntheticLMData(cfg, run.shape).batch(0), "cuda")
+        t0 = time.perf_counter()
+        p, opt, m = model.train_step(params, model.opt_init(params), batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        del opt
+        torch.save({"params": p, "metrics": {k: float(v)
+                                             for k, v in m.items()}},
+                   os.path.join(tmp, "moe_plain.pt"))
+        print(f"  plain qwen2-moe step {plain_s:.3f} s, "
+              f"{json.dumps({k: float(v) for k, v in m.items()})}",
+              flush=True)
+        del params, p, m, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  this process holds {torch.cuda.memory_reserved() / 1e9:.3f}"
+              f" GB of the card", flush=True)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--rank16c", str(r), "2", tmp], env=env)
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        try:
+            while any(q.poll() is None for q in procs) and all(
+                    q.returncode in (None, 0) for q in procs) and \
+                    time.perf_counter() - t0 < RANK_TIMEOUT:
+                time.sleep(0.2)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+            for r in range(2):
+                log = os.path.join(tmp, f"rank{r}.out")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        for line in f.read().splitlines()[-40:]:
+                            print(f"  [rank {r}] {line}", flush=True)
+        check(all(q.returncode == 0 for q in procs),
+              f"both 16c processes exited 0 in "
+              f"{time.perf_counter() - t0:.3f} s")
+        recs = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            for key, path in res["launched"]:
+                LAUNCHED["flash_attention_fwd"].setdefault(tuple(key), path)
+            recs.append(res["records"])
+    for (tl, moe) in recs:
+        check(tl["loss_diff"] <= MP_LOSS_TOL and tl["int8_wire_ok"],
+              f"int8 over two processes: loss within {MP_LOSS_TOL} "
+              f"({tl['loss_diff']:.3e}), only int8 and f32 scales on the "
+              f"wire")
+        check(moe["loss_diff"] <= MP_LOSS_TOL
+              and moe["collective_calls"].get("all_to_all", 0) > 0,
+              f"manual EP over two processes: loss within {MP_LOSS_TOL} "
+              f"({moe['loss_diff']:.3e}), experts exchanged by all_to_all "
+              f"({moe['collective_calls']})")
+    return recs
+
+
 # ----------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2041,6 +2457,16 @@ def main() -> int:
 
     for name, paths in zoo_paths(plan).items():
         by_path[name].update(paths)
+
+    # ---- multi-device steps: world-1 NCCL mesh, then two processes
+    check(trun.grad_accum == 2, "phase 8 trains in 2 microbatches")
+    md = timed("phase 16a-b", phase_multidevice, tcfg,
+               trun.with_(grad_accum=1))
+    md_two = timed("phase 16c", phase_two_processes)
+    fa_paths = by_path["flash_attention_fwd"]
+    for rec in md + [r for rank in md_two for r in rank]:   # both of 16c's
+        fa_paths[rec["path"]] = (fa_paths.get(rec["path"], 0)
+                                 + rec["launches"]["flash_attention_fwd"])
     check(by_path["selective_scan_fwd"].get("serve jamba-v0.1-52b")
           and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
           "the jamba serve path launched both kernels")
@@ -2113,4 +2539,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank16c"]:      # one of phase 16c's processes
+        sys.exit(rank_16c(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

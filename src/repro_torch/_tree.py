@@ -10,30 +10,38 @@ their 16-bit pattern, so the port never imports ``ml_dtypes``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
 
-def tree_map(f: Callable, tree: Any, *rest: Any) -> Any:
-    """Apply ``f`` to each leaf (and the matching leaves of ``rest``)."""
+def tree_map(f: Callable, tree: Any, *rest: Any,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
+    """Apply ``f`` to each leaf (and the matching leaves of ``rest``);
+    ``is_leaf`` stops the walk at a container it accepts, as in
+    ``jax.tree.map``."""
+    if is_leaf is not None and is_leaf(tree):
+        return f(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(f, v, *(r[k] for r in rest))
+        return {k: tree_map(f, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, tuple):
-        vals = [tree_map(f, *xs) for xs in zip(tree, *rest)]
+        vals = [tree_map(f, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest)]
         return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
     if isinstance(tree, list):
-        return [tree_map(f, *xs) for xs in zip(tree, *rest)]
+        return [tree_map(f, *xs, is_leaf=is_leaf) for xs in zip(tree, *rest)]
     return f(tree, *rest)
 
 
-def tree_leaves(tree: Any) -> List[Any]:
+def tree_leaves(tree: Any,
+                is_leaf: Optional[Callable[[Any], bool]] = None) -> List[Any]:
     out: List[Any] = []
 
     def walk(t):
-        if isinstance(t, dict):
+        if is_leaf is not None and is_leaf(t):
+            out.append(t)
+        elif isinstance(t, dict):
             for v in t.values():
                 walk(v)
         elif isinstance(t, (list, tuple)):

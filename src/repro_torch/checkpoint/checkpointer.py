@@ -1,9 +1,15 @@
-"""Checkpointing: pytree <-> npz with topology metadata, async save and
-MDSS-versioned URIs (``repro.checkpoint.checkpointer``).
+"""Checkpointing: pytree <-> npz with topology metadata, async save,
+MDSS-versioned URIs, and elastic restore onto a different mesh
+(``repro.checkpoint.checkpointer``).
 
   * every save records the step and the topology it was written for;
     leaves are keyed ``a/b/c`` by their path, the keys the reference's
-    ``jax.tree`` paths give for the same tree,
+    ``jax.tree`` paths give for the same tree; a DTensor leaf (a sharded
+    tree) is saved as its full tensor, gathered on every process and
+    written by rank 0, synchronously,
+  * restore re-shards: with ``shardings`` (``Model.param_shardings`` on
+    the target mesh) each leaf becomes a DTensor placed by its sharding,
+    so a checkpoint written on one mesh restores onto another,
   * saves are published through MDSS (``ckpt://<name>/latest``) so
     residency and versioning are tracked like workflow data,
   * async mode hands serialization to a background thread; the device to
@@ -13,9 +19,7 @@ MDSS-versioned URIs (``repro.checkpoint.checkpointer``).
     checkpoint (a restart skips partial files).
 
 bfloat16 leaves are stored as their 16-bit pattern (numpy has no
-bfloat16) and restored to the template's dtype. Restoring onto another
-mesh (the reference's ``shardings=``) waits for the port's multi-device
-support.
+bfloat16) and restored to the template's dtype.
 """
 from __future__ import annotations
 
@@ -87,6 +91,26 @@ class Checkpointer:
 
     # ------------------------------------------------------------------ save
     def save(self, name: str, step: int, tree, *, topology: Dict[str, Any]):
+        """A tree of DTensors is saved by every process of the process
+        group together and synchronously, whatever ``async_save`` says:
+        each leaf's full tensor is gathered on every process (a
+        collective), only rank 0 copies it to the host and writes, and
+        every process returns once the file is in place, so any of them
+        may restore it next."""
+        if any(hasattr(x, "full_tensor") for x in _tree.tree_leaves(tree)):
+            import torch.distributed as dist
+            rank0 = dist.get_rank() == 0
+            arrays = {}
+            for path, leaf in _paths(tree):
+                if hasattr(leaf, "full_tensor"):
+                    leaf = leaf.full_tensor()
+                if rank0:
+                    arrays[_key(path)] = _host_array(leaf)
+            if rank0:
+                self.wait()
+                self._write(name, step, arrays, topology)
+            dist.barrier()
+            return
         arrays = _flatten_with_paths(tree)   # device -> host copy happens here
         if self.async_save:
             self.wait()
@@ -123,11 +147,14 @@ class Checkpointer:
         with open(p) as f:
             return int(f.read().strip())
 
-    def restore(self, name: str, template, *, step: Optional[int] = None
-                ) -> Tuple[Any, Dict[str, Any]]:
+    def restore(self, name: str, template, *, step: Optional[int] = None,
+                shardings=None) -> Tuple[Any, Dict[str, Any]]:
         """Host tensors of ``template``'s structure, shapes and dtypes
         (``template``'s leaves need only ``shape`` and ``dtype``: meta
-        tensors will do)."""
+        tensors will do); with ``shardings`` (a tree of
+        ``parallel.sharding.NamedSharding``, possibly of a *different*
+        mesh than the save's: elastic), DTensors placed by them, which
+        every process of that mesh must restore together."""
         self.wait()
         if step is None:
             step = self.latest_step(name)
@@ -137,4 +164,8 @@ class Checkpointer:
         with np.load(path) as z:
             meta = json.loads(bytes(z["__meta__"]).decode())
             arrays = {k: z[k] for k in z.files if k != "__meta__"}
-        return _unflatten_like(template, arrays), meta
+        tree = _unflatten_like(template, arrays)
+        if shardings is not None:
+            from repro_torch.parallel.sharding import distribute_tree
+            tree = distribute_tree(tree, shardings)
+        return tree, meta

@@ -1,4 +1,5 @@
-"""Deterministic synthetic LM data (``repro.data.pipeline``, batches only).
+"""Deterministic synthetic LM data (``repro.data.pipeline``): batches,
+their logical axes and their meta-device specs.
 
 One global batch per (seed, step), drawn with numpy exactly as the
 reference draws it, so the two packages see the same bits:
@@ -40,6 +41,21 @@ def token_batch_shapes(cfg: ModelConfig, shape: ShapeProfile) -> Dict[str, tuple
         out["tokens"] = (B, S)
         out["labels"] = (B, S)
     return out
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeProfile):
+    shapes = token_batch_shapes(cfg, shape)
+    axes = {}
+    for k, shp in shapes.items():
+        axes[k] = ("act_batch",) + (None,) * (len(shp) - 1)
+    return axes
+
+
+def make_batch_specs(cfg: ModelConfig, shape: ShapeProfile):
+    """The batch's shapes and dtypes, as tensors on the meta device."""
+    return {k: torch.empty(shp, device="meta", dtype=torch_dtype(cfg.dtype)
+                           if "embeds" in k else torch.int32)
+            for k, shp in token_batch_shapes(cfg, shape).items()}
 
 
 @dataclass

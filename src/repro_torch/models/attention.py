@@ -33,9 +33,11 @@ NEG_INF = -1e30
 
 @dataclass(frozen=True)
 class TensorSpec:
-    """Shape and dtype of a tensor to allocate (a pytree leaf)."""
+    """Shape, dtype and logical axes of a tensor to allocate (a pytree
+    leaf)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    axes: Tuple[Optional[str], ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -130,12 +132,14 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos: int):
 
 
 def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """KV-cache entry to allocate."""
+    """KV-cache entry to allocate, with its logical axes."""
     kvp, hd = cfg.kv_heads_padded, cfg.hdim
     dt = torch_dtype(cfg.dtype)
     return {
-        "k": TensorSpec((batch, seq, kvp, hd), dt),
-        "v": TensorSpec((batch, seq, kvp, hd), dt),
+        "k": TensorSpec((batch, seq, kvp, hd), dt,
+                        ("act_batch", "act_kv_seq", "act_kv_heads", None)),
+        "v": TensorSpec((batch, seq, kvp, hd), dt,
+                        ("act_batch", "act_kv_seq", "act_kv_heads", None)),
         "pos": TensorSpec((), torch.int32),
     }
 
@@ -233,11 +237,13 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
 
 
 def mla_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """Latent-cache entry to allocate."""
+    """Latent-cache entry to allocate, with its logical axes."""
     dt = torch_dtype(cfg.dtype)
     return {
-        "ckv": TensorSpec((batch, seq, cfg.kv_lora_rank), dt),
-        "krope": TensorSpec((batch, seq, cfg.qk_rope_head_dim), dt),
+        "ckv": TensorSpec((batch, seq, cfg.kv_lora_rank), dt,
+                          ("act_batch", "act_kv_seq", None)),
+        "krope": TensorSpec((batch, seq, cfg.qk_rope_head_dim), dt,
+                            ("act_batch", "act_kv_seq", None)),
         "pos": TensorSpec((), torch.int32),
     }
 

@@ -109,10 +109,13 @@ def mamba_decode(cfg: ModelConfig, p, x, cache):
 
 
 def mamba_cache_spec(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    """SSM state and conv-window cache entry to allocate."""
+    """SSM state and conv-window cache entry to allocate, with its logical
+    axes."""
     di, n, k = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
     return {
-        "h": TensorSpec((batch, di, n), torch.float32),
-        "conv": TensorSpec((batch, k - 1, di), torch_dtype(cfg.dtype)),
+        "h": TensorSpec((batch, di, n), torch.float32,
+                        ("act_batch", "act_ssm_inner", None)),
+        "conv": TensorSpec((batch, k - 1, di), torch_dtype(cfg.dtype),
+                           ("act_batch", None, "act_ssm_inner")),
         "pos": TensorSpec((), torch.int32),
     }

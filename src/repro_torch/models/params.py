@@ -2,8 +2,10 @@
 
 A model declares its parameters once as a pytree of :class:`ParamSpec`
 (the same templates, keys and shapes as ``repro.models.params``). From the
-template come real tensors (``init_params``), and ``from_reference`` turns
-the reference's params, as numpy arrays, into the port's, key for key.
+template come real tensors (``init_params``) and the logical-axes tree
+that ``parallel.sharding`` resolves (``logical_axes``); ``from_reference``
+turns the reference's params, as numpy arrays, into the port's, key for
+key.
 """
 from __future__ import annotations
 
@@ -35,6 +37,11 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def logical_axes(template):
+    """The template's tree of logical-dim-name tuples."""
+    return _tree.tree_map(lambda s: s.axes, template)
 
 
 def init_params(template, generator: torch.Generator, param_dtype: str,

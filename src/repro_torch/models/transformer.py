@@ -20,8 +20,8 @@ MoE (none for ``mamba_only``). Encoder-decoder (seamless) adds a
 non-causal encoder stack and cross-attention in every decoder block; the
 VLM / speech frontends are embedding stubs (``frontend_embeds`` prepended
 to the token embeddings); deepseek's MTP head adds a next-next-token
-loss. The one part of the reference not ported is ``moe_impl="manual_ep"``
-(the expert all-to-all), which raises ``NotImplementedError``.
+loss. ``moe_impl="manual_ep"`` exchanges tokens with the experts' owners
+by ``all_to_all`` when a mesh is in use (``parallel.sharding.use_mesh``).
 """
 from __future__ import annotations
 
@@ -116,8 +116,9 @@ def block_cache_spec(cfg: ModelConfig, bt: str, batch: int, seq: int,
     if cross:
         kvp, hd = cfg.kv_heads_padded, cfg.hdim
         dt = torch_dtype(cfg.dtype)
-        spec["xk"] = TensorSpec((batch, enc_len, kvp, hd), dt)
-        spec["xv"] = TensorSpec((batch, enc_len, kvp, hd), dt)
+        axes = ("act_batch", None, "act_kv_heads", None)
+        spec["xk"] = TensorSpec((batch, enc_len, kvp, hd), dt, axes)
+        spec["xv"] = TensorSpec((batch, enc_len, kvp, hd), dt, axes)
     return spec
 
 
@@ -222,9 +223,12 @@ def run_stages(cfg, run, params, x, *, mode, caches=None, pos=None,
     new_caches = {} if caches is not None else None
     stages = cfg.stages() if prefix == "stage" \
         else ((("enc",), cfg.n_encoder_layers),)
-    for si, (pattern, reps) in enumerate(stages):
+    for si, (pattern, _) in enumerate(stages):
         key = f"stage_{si}" if prefix == "stage" else "enc_stage"
         c_in = caches.get(key) if caches is not None else None
+        # the repeats this process holds: all of them, or a pipeline
+        # stage's slice of them
+        reps = _tree.tree_leaves(params[key])[0].shape[0]
 
         def body(xx, lp, lc, _pattern=pattern):
             c_out = {}
@@ -352,7 +356,8 @@ def cache_spec(cfg: ModelConfig, batch: int, seq: int,
     for si, (pattern, reps) in enumerate(cfg.stages()):
         val[f"stage_{si}"] = {
             f"pos_{j}": _tree.tree_map(
-                lambda s: TensorSpec((reps,) + s.shape, s.dtype),
+                lambda s: TensorSpec((reps,) + s.shape, s.dtype,
+                                     ("layers",) + s.axes),
                 block_cache_spec(cfg, bt, batch, seq, cross=cross,
                                  enc_len=enc_len))
             for j, bt in enumerate(pattern)}

@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch import _tree
+from repro_torch.parallel.sharding import is_axes
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -26,8 +27,11 @@ def global_norm(tree) -> torch.Tensor:
                           for l in _tree.tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    g = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, g=None):
+    """``grads`` scaled to global norm at most ``max_norm``, and the norm
+    (``g``, when given, is taken as the norm: that of a tree whose leaves
+    are split over processes)."""
+    g = global_norm(grads) if g is None else g
     scale = torch.clamp(max_norm / (g + 1e-9), max=1.0)
     # the product in float32, as the reference promotes a bf16 leaf times
     # a float32 scalar
@@ -150,3 +154,17 @@ def make_optimizer(name: str, *, state_dtype="float32", weight_decay=0.1):
     else:
         raise ValueError(name)
     return init, update
+
+
+def opt_state_axes(opt_name: str, param_axes):
+    """Logical axes for the optimizer state tree (mirrors params)."""
+    if opt_name == "adamw":
+        return {"mu": param_axes, "nu": param_axes, "step": ()}
+
+    # adafactor: factored leaves drop the last / second-to-last axis
+    def fac(ax):
+        if len(ax) >= 2:
+            return {"vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        return {"v": ax}
+    return {"v": _tree.tree_map(fac, param_axes, is_leaf=is_axes),
+            "step": ()}

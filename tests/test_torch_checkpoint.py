@@ -1,9 +1,10 @@
 """The port's checkpointer (``repro_torch.checkpoint``): the cases of
-``tests/test_checkpoint.py`` but the elastic reshard across meshes (which
-waits for the port's multi-device support), its keys against the JAX
-checkpointer's for the same tree, bfloat16 leaves, the host copy taken at
-``save``, and a ``Trainer`` resumed from a checkpoint bit-identical to an
-uninterrupted run."""
+``tests/test_checkpoint.py``, its keys against the JAX checkpointer's for
+the same tree, bfloat16 leaves, the host copy taken at ``save``, a
+``Trainer`` resumed from a checkpoint bit-identical to an uninterrupted
+run, and the elastic restore: a tree sharded over (pod 2) on two gloo
+processes, saved, restored onto (data 2) with the fsdp placements and
+onto one process, every full tensor bitwise the saved one."""
 import os
 
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.configs.base import RunConfig, ShapeProfile, reduced
 from repro_torch.launch.train import Trainer
+from repro_torch.parallel.sharding import Mesh
 
 
 def tree():
@@ -161,3 +163,79 @@ def test_trainer_resume_bit_identical(tmp_path):
     assert [m["loss"] for m in h3] == [m["loss"] for m in h1[3:]]
     for a, b in zip(_tree.tree_leaves(p1), _tree.tree_leaves(p3)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Elastic restore across meshes
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def elastic(tmp_path_factory):
+    from repro_torch.models.model_zoo import Model
+    from tests._torch_ranks import run_ranks
+    cfg = reduced(get_config("tinyllama-1.1b"), n_layers=2,
+                  param_dtype="bfloat16")
+    run = RunConfig(model=cfg, shape=ShapeProfile("t", 8, 2, "train"))
+    model = Model(run)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    d = tmp_path_factory.mktemp("elastic")
+    ranks = run_ranks("checkpoint", 2, d / "ranks",
+                      {"cfg": cfg, "params": params, "dir": str(d / "ck")})
+    return model, params, str(d / "ck"), ranks
+
+
+def _bitwise(a, b):
+    return a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+        b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+
+
+def test_restore_from_pod_onto_data_sharding(elastic):
+    model, params, _, ranks = elastic
+    leaves = _tree.tree_leaves(params)
+    specs = _tree.tree_leaves(model.param_pspecs(
+        Mesh({"pod": 1, "data": 2, "model": 1})),
+        is_leaf=lambda x: isinstance(x, tuple))
+    assert any(s for s in specs), "the fsdp rules shard some leaf over data"
+    for r in ranks:
+        # the file is in place on every process when save returns
+        assert r["saved"] == 3
+        assert r["meta"]["step"] == 3
+        assert r["meta"]["topology"] == {"mesh": {"pod": 2, "data": 1,
+                                                  "model": 1}}
+        assert all(_bitwise(a, b) for a, b in zip(r["full"], leaves))
+        assert any(t.dtype == torch.bfloat16 for t in r["full"])
+        # saved: each pod held half of every stage's layers
+        for x, shp, name in zip(leaves, r["saved_local_shapes"],
+                                _tree.tree_leaves(_names(params))):
+            want = (x.shape[0] // 2,) + tuple(x.shape[1:]) \
+                if name.startswith("stage_") else tuple(x.shape)
+            assert shp == want, name
+        # restored: each data shard holds half of its split dim
+        for x, shp, spec in zip(leaves, r["local_shapes"], specs):
+            want = [d // 2 if i < len(spec) and spec[i] == "data" else d
+                    for i, d in enumerate(x.shape)]
+            assert list(shp) == want, spec
+
+
+def test_restore_onto_one_process(elastic):
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    model, params, ck_dir, _ = elastic
+    try:
+        mesh = make_host_mesh("cpu")
+        tree, meta = Checkpointer(ck_dir).restore(
+            "m", model.abstract_params(),
+            shardings=model.param_shardings(mesh))
+        full = [t.full_tensor() for t in _tree.tree_leaves(tree)]
+    finally:
+        dist.destroy_process_group()
+    assert meta["step"] == 3
+    assert all(_bitwise(a, b) for a, b in zip(full,
+                                              _tree.tree_leaves(params)))
+
+
+def _names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _names(v, prefix or k) for k, v in tree.items()}
+    return prefix

@@ -18,7 +18,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 assert {"repro_torch.models.moe", "repro_torch.analysis.sanitizer",
         "repro_torch.analysis.explorer", "repro_torch.analysis.selfcheck",
         "repro_torch.cloud.simfabric", "repro_torch.tools.emlint",
-        "repro_torch.tools.emcheck", "repro_torch.tools.emtop"} <= set(names), \
+        "repro_torch.tools.emcheck", "repro_torch.tools.emtop",
+        "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
+        "repro_torch.optim.grad_compress", "repro_torch.launch.mesh"
+        } <= set(names), \
     names
 for n in names:
     importlib.import_module(n)

@@ -286,10 +286,13 @@ def test_every_architecture_builds_the_reference_template(arch):
         _template_leaves(jmodel_template(jget_config(arch)))
 
 
-def test_manual_ep_moe_raises():
-    """The expert all-to-all waits for the multi-device work."""
+def test_manual_ep_moe_without_a_mesh_is_moe():
+    """``moe_impl="manual_ep"`` with no mesh in use falls back to the sort
+    dispatch, as the reference's: the same prefill logits as ``moe``."""
     _, _, m, p = _pair(arch="qwen2-moe-a2.7b",
                        run_kw={"moe_impl": "manual_ep"})
-    with pytest.raises(NotImplementedError, match="all_to_all"):
-        m.prefill(p, {"tokens": torch.from_numpy(_tokens(8))},
-                  m.init_cache())
+    _, _, m_sort, _ = _pair(arch="qwen2-moe-a2.7b")
+    batch = {"tokens": torch.from_numpy(_tokens(8))}
+    logits, _ = m.prefill(p, batch, m.init_cache())
+    want, _ = m_sort.prefill(p, batch, m_sort.init_cache())
+    assert torch.equal(logits, want)

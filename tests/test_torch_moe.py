@@ -151,3 +151,125 @@ def test_moe_aux_loss_uniform_router_is_one():
     _, jaux = JM.moe(jcfg, jp, jnp.asarray(x), RULES)
     assert abs(float(aux) - cfg.experts_per_token) < 0.3
     np.testing.assert_allclose(float(aux), float(jaux), atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# The expert all-to-all (moe_manual_ep) across processes: gloo on the CPU,
+# one launch of 4 ranks, meshes (data 4) and (pod 2 x data 2: two
+# (data 2) expert groups, each over its pod's batch). Each rank holds its
+# rows of the batch; the reference runs its ``moe`` (``moe_gshard`` for
+# the gshard dispatch) on the whole batch of the group. Gradients are of
+# sum(y * ct) + aux, each rank seeding its rows and aux / n.
+# ---------------------------------------------------------------------------
+
+EP_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b")
+EP_MESHES = ((1, 4, 1), (2, 2, 1))
+EP_B, EP_S = 8, 32
+
+
+@pytest.fixture(scope="module")
+def ep_runs(tmp_path_factory):
+    from repro.configs import get_config as jget_config
+    from repro.configs.base import reduced as jreduced
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from tests._torch_ranks import run_ranks
+    cases, refs = [], {}
+    for i, arch in enumerate(EP_ARCHS):
+        jcfg, cfg = jreduced(jget_config(arch)), reduced(get_config(arch))
+        jp = jinit_params(JM.moe_template(jcfg), jax.random.PRNGKey(i),
+                          "float32")
+        rng = np.random.default_rng(10 + i)
+        x, ct = (rng.normal(size=(EP_B, EP_S, cfg.d_model)).astype(np.float32)
+                 for _ in range(2))
+        cases.append({"cfg": cfg, "x": torch.from_numpy(x),
+                      "ct": torch.from_numpy(ct),
+                      "params": from_reference(jax.tree.map(np.asarray, jp))})
+        refs[arch] = (jcfg, jp)
+    ranks = run_ranks("moe", 4, tmp_path_factory.mktemp("ep"),
+                      {"cases": cases, "meshes": EP_MESHES})
+    return {c["cfg"].name: c for c in cases}, refs, ranks
+
+
+def _group_rows(shape, rank):
+    """(the rows of the group's batch, this rank's rows within it)."""
+    pods = shape[0]
+    per_pod = EP_B // pods
+    n = shape[1]
+    p, d = divmod(rank, n)
+    k = per_pod // n
+    return slice(p * per_pod, (p + 1) * per_pod), slice(d * k, (d + 1) * k)
+
+
+@pytest.mark.parametrize("impl", ["manual_ep", "sort", "gshard"])
+@pytest.mark.parametrize("shape", EP_MESHES)
+@pytest.mark.parametrize("arch", EP_ARCHS)
+def test_moe_across_processes_matches_the_whole_batch(ep_runs, arch, shape,
+                                                      impl):
+    cases, refs, ranks = ep_runs
+    case = cases[arch]
+    cfg, p = case["cfg"], case["params"]
+    jcfg, jp = refs[arch]
+    jfn = JM.moe_gshard if impl == "gshard" else JM.moe
+    n = shape[1]
+    for pod in range(shape[0]):
+        rows = _group_rows(shape, pod * n)[0]
+        x, ct = case["x"][rows], case["ct"][rows]
+        jy, jaux = jfn(jcfg, jp, jnp.asarray(x.numpy()), RULES)
+        # the port's single-process layer on the whole batch: gradients
+        xg = x.clone().requires_grad_()
+        leaves = [t.detach().requires_grad_() for t in _tree.tree_leaves(p)]
+        y, aux = M.moe(cfg, _tree.unflatten_like(p, leaves), xg)
+        gx, *gp = torch.autograd.grad((y * ct).sum() + aux, [xg] + leaves,
+                                      retain_graph=True)
+        ga = torch.autograd.grad(aux, [xg] + leaves, allow_unused=True)
+        outs = [ranks[r][(cfg.name, shape, impl)]
+                for r in range(pod * n, (pod + 1) * n)]
+        for d, out in enumerate(outs):
+            mine = _group_rows(shape, pod * n + d)[1]
+            np.testing.assert_allclose(out["y"].numpy(),
+                                       np.asarray(jy)[mine], atol=ATOL)
+            np.testing.assert_allclose(out["aux"], float(jaux), atol=ATOL)
+            np.testing.assert_allclose(out["gx"].numpy(), gx[mine].numpy(),
+                                       atol=ATOL)
+            calls = out["counts"]["calls"]
+            # forward and backward: two exchanges each way for manual_ep
+            assert calls.get("all_to_all", 0) == (4 if impl == "manual_ep"
+                                                  else 0)
+        # the layer's gradients: each process's share, summed; sums over
+        # the batch of entries up to ~10, so 1e-5 relative as well
+        for i, g in enumerate(gp):
+            got = sum(out["gp"][i] for out in outs)
+            np.testing.assert_allclose(got.numpy(), g.numpy(), rtol=1e-5,
+                                       atol=ATOL)
+        # the load-balance loss's own gradients (its statistics summed
+        # over the processes), at 1e-5 of their largest entry: the rows'
+        # and the router's (the only param it reaches)
+        for d, out in enumerate(outs):
+            mine = _group_rows(shape, pod * n + d)[1]
+            want = ga[0][mine].numpy()
+            np.testing.assert_allclose(out["ga"][0].numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        i = 1 + [k for k, _ in _named(p)].index("router")
+        want = ga[i].numpy()
+        got = sum(out["ga"][i] for out in outs).numpy()
+        assert np.abs(want).max() > 0
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+def _named(tree, prefix=""):
+    """(path, leaf) pairs in ``_tree.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _named(v, f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def test_manual_ep_without_a_mesh_is_moe():
+    """The reference's fallback: no mesh in use -> the sort dispatch."""
+    _, cfg, _, p, x = _setup(n_experts=8, experts_per_token=2,
+                             n_shared_experts=1)
+    y1, a1 = M.moe_manual_ep(cfg, p, torch.from_numpy(x))
+    y2, a2 = M.moe(cfg, p, torch.from_numpy(x))
+    assert torch.equal(y1, y2) and torch.equal(a1, a2)
