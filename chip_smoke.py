@@ -30,9 +30,10 @@ each phase's wall time printed:
   4. run the same model at 2 layers, full width, on the card (bf16, kernel)
      and on the CPU (f32, plain version) from one param tree, and compare
      the logits;
-  3b. serve falcon-mamba-7b at its full config (64 Mamba layers, d_model
-     4096, bf16, random weights from a seed) the same way: 4 requests in
-     one batch; every prefill launches the selective scan once per layer;
+  3b. serve falcon-mamba-7b at full width, 32 of its 64 Mamba layers
+     (d_model 4096, bf16, random weights from a seed) the same way: 4
+     requests in one batch; every prefill launches the selective scan
+     once per layer;
   4b. falcon-mamba at 2 layers, full width, card against CPU, as phase 4;
   5. the paper's adjoint-tomography workflow (``repro_torch.apps``) at the
      Fig 11 and Fig 12 meshes (nt=200, 16 receivers, f32) through
@@ -75,15 +76,16 @@ each phase's wall time printed:
      seamless's non-causal encoder, causal decoder and cross-attention
      (Sq != Skv), the reduced f32 train configs' shapes; the scan at each
      hybrid path's shape;
-  10a-e. serve internvl2-1b, qwen2-moe-a2.7b and minicpm3-4b at their full
-     configs, jamba-v0.1-52b at 8 of 32 layers and deepseek-v3-671b at 4
+  10a-e. serve internvl2-1b and minicpm3-4b at their full configs,
+     qwen2-moe-a2.7b at 8 of 24 layers, jamba-v0.1-52b at 8 of 32
+     layers and deepseek-v3-671b at 4
      of 61 (3 dense, 1 MoE) through the Server as phase 3 does: 2
      requests, 8 new tokens each; jamba's prefill launches both kernels;
   10f. serve seamless-m4t-medium (full config) through ``Model.prefill``
      and ``decode_step`` on the card, as the JAX package can (its Server
      feeds no encoder frames);
   11a-f. train through the Trainer, 2 steps each: internvl2-1b and
-     seamless-m4t-medium full, minicpm3-4b at 16 layers, qwen2-moe-a2.7b
+     seamless-m4t-medium full, minicpm3-4b at 8 layers, qwen2-moe-a2.7b
      at 2 layers, jamba and deepseek-v3 at their reduced configs (one of
      their MoE layers at full width, with its gradient and AdamW state,
      does not fit one card);
@@ -116,6 +118,25 @@ each phase's wall time printed:
      (data 2) with ``moe_impl="manual_ep"`` (the experts exchanged by
      ``all_to_all``, AdamW bf16 state so that two fit one card), each
      against the plain step on the card;
+  17. (run after phase 16, before phase 13) tensor parallelism, FSDP
+     storage and the dry run. 17a: which functional collectives gloo
+     carries for CUDA tensors (one pair of processes per collective);
+     the plain train step, prefill (256 tokens) and 4 greedy decode steps
+     of full tinyllama-1.1b (2048 x 2, AdamW f32) in this process, then
+     two ``chip_smoke.py --rank17a`` processes over gloo on cuda:0 run the
+     same on DTensor-placed trees in two layouts, (data 1, model 2)
+     ``dp_tp`` and (data 2, model 1) ``fsdp``, each held against the
+     plain steps (loss rel 2e-3, grad_norm rel 3e-2, params within one
+     AdamW step's reach, logits at phase 4's bounds, teacher-forced with
+     the plain tokens), with flash launched 66 times per process at the
+     local shapes (phase 13 holds each), s/step, serve s and peak GB.
+     17b: the dry run (``repro_torch.launch.dryrun.run_cell``) of
+     tinyllama-1.1b and falcon-mamba-7b x train_4k, prefill_32k,
+     decode_32k x (data 16, model 16) and (pod 2, data 16, model 16) on
+     fake CUDA tensors over a fake process group: one line per cell as
+     the reference's ``main()`` prints it and its record; a cell not
+     ``ok``, or a train or prefill cell whose kernel FLOPs read 0, fails
+     the run;
   15. (run after phase 13) the explorer's dispatch seam driving the real
      runtime on the card: one EmeraldRuntime (cloud tier on the card,
      ``max_workers=2``) takes three tenants' adjoint-tomography
@@ -182,7 +203,16 @@ TENANT_SEED = 0         # phase 15's seeded dispatch hook
 # the bf16 bounds PERF.md uses card against CPU
 FD_REL_TOL = 2e-2
 TRAIN_STEPS = 3         # a warm-up, a timed step, a timed profiled step
-MAMBA_TRAIN_LAYERS = 8  # of 64: the whole 7.3 B model with AdamW f32 state
+# Depth cuts. The whole script must end within 1200 s (the card's run
+# limit); with phase 17 it took 855.341 s, and 1167.093 s on a slower host
+# (every phase 1.2-1.9x longer; NVIDIA H100 80GB HBM3, 700.00 W),
+# before phase 17b ran beside 17a. To make room for phase 17 three paths
+# run shallower than before it. What each cut saves is at most the phase's
+# time at the cut depth scaled by the layers removed (its fixed costs do
+# not scale; PERF.md §5):
+# falcon-mamba-7b train 8 -> 4 layers (phase 8b, 42.5 s), qwen2-moe-a2.7b
+# serve 24 -> 8 (10b, 32.6 s), minicpm3-4b train 16 -> 8 (11c, 31.6 s).
+MAMBA_TRAIN_LAYERS = 4  # of 64: the whole 7.3 B model with AdamW f32 state
 #                         needs ~87 GB for params, grads and state
 FRAMING_MAX = 64 * 1024  # bytes beside the batch a later step may ship up
 # one f32 train step card vs CPU: the loss sums ~1e5 f32 terms in another
@@ -279,9 +309,8 @@ def fa_bound_ms(B, Sq, Skv, H, KV, dq, dv, dtype, causal, kv_len):
     esize = 2 if dtype == "bfloat16" else 4
     nbytes = esize * (B * Sq * H * dq + B * Skv * KV * (dq + dv)
                       + B * Sq * H * dv)
-    kv_len = Skv if kv_len is None else kv_len
-    pairs = sum(min(kv_len, q + 1) if causal else kv_len for q in range(Sq))
-    ops = B * H * pairs * 2 * (dq + dv)
+    from repro_torch.kernels.flash_attention.ops import flops
+    ops = flops(B, Sq, H, dq, dv, causal, Skv if kv_len is None else kv_len)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -471,9 +500,11 @@ def ss_bound_ms(Bt, L, di, N, dtype):
     es = 2 if dtype == "bfloat16" else 4
     nbytes = (es * (2 * Bt * L * di + 2 * Bt * L * N)      # x, y; B, C
               + 4 * (Bt * L * di + di * N + di + 2 * Bt * di * N))
+    from repro_torch.kernels.mamba_scan.ops import flops
     exps = Bt * L * di * N
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(exps / SFU_EXP_PER_S, 4 * exps / PEAK_FLOPS["float32"]) * 1e3
+    t_ops = max(exps / SFU_EXP_PER_S, flops(Bt, L, di, N)
+                / PEAK_FLOPS["float32"]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1642,18 +1673,20 @@ def phase_train_parity(label, arch):
 # The six architectures beyond the dense and Mamba-only ones, with the
 # depth each runs at on one 80 GB card (bf16 params; train with AdamW f32
 # state at ~28 B per param, PERF.md): serve depth, train depth, tokens.
-ZOO_SERVE = (("internvl2-1b", None), ("qwen2-moe-a2.7b", None),
+ZOO_SERVE = (("internvl2-1b", None), ("qwen2-moe-a2.7b", 8),
              ("minicpm3-4b", None), ("jamba-v0.1-52b", 8),
              ("deepseek-v3-671b", 4))
 ZOO_TRAIN = (("internvl2-1b", None, 2048), ("seamless-m4t-medium", None, 1024),
-             ("minicpm3-4b", 16, 1024), ("qwen2-moe-a2.7b", 2, 1024))
+             ("minicpm3-4b", 8, 1024), ("qwen2-moe-a2.7b", 2, 1024))
 ZOO_CUT = {
     ("jamba-v0.1-52b", "serve"): "8 of 32 layers (one attention period: "
     "7 Mamba layers, 4 of them MoE, and the attention layer; 13.3 B params)",
     ("deepseek-v3-671b", "serve"): "4 of 61 layers (the 3 dense layers and "
     "one 256-expert MoE layer; 15.8 B params)",
-    ("minicpm3-4b", "train"): "16 of 62 layers (the whole 4.4 B model with "
-    "AdamW f32 state needs ~123 GB)",
+    ("qwen2-moe-a2.7b", "serve"): "8 of 24 layers (24 until phase 17 "
+    "needed the script's time; 9.7 B params)",
+    ("minicpm3-4b", "train"): "8 of 62 layers (the whole 4.4 B model with "
+    "AdamW f32 state needs ~123 GB; 16 until phase 17 needed the time)",
     ("qwen2-moe-a2.7b", "train"): "2 of 24 layers (the whole 14.3 B model "
     "with AdamW f32 state needs ~400 GB)",
     ("jamba-v0.1-52b", "train"): "reduced config (one mamba_moe layer at "
@@ -2351,6 +2384,397 @@ def phase_two_processes():
     return recs
 
 
+# ----------------------------- 17: tensor parallelism, FSDP and the dry run
+# 17a: full tinyllama-1.1b, bf16, over two gloo processes on the one card,
+# against the plain single-process step on the card. Both sides are bf16
+# and differ in the order of their sums (a product split over model sums
+# its halves in bf16): the loss within rel 2e-3 (~0.02 at a loss of ~10.4,
+# a bf16 loss's last bits); grad_norm within rel 2e-3, about 3x the
+# largest reading (5.8e-4, dp_tp); each gradient leaf, read as AdamW's
+# first moment (0.1 x the clipped gradient, f32), within rel 5e-2 of the
+# plain step's leaf, norm-wise, about 3x the largest reading (1.65e-2,
+# dp_tp, whose median leaf reads 1.5e-2: the bf16 roundings of the split
+# products' sums compound over the 22 layers' backward; fsdp 7.5e-3),
+# while a reduction lost or doubled (a Partial dropped) moves a leaf by
+# rel 0.5 or more; params within one AdamW step's reach (which alone
+# would not see a wrong gradient); logits at phase 4's bf16 bounds.
+TP_SEQ, TP_BATCH = 2048, 2
+TP_PROMPT, TP_CACHE, TP_DECODE = 256, 512, 4
+TP_LAYOUTS = (((1, 2), "dp_tp"), ((2, 1), "fsdp"))
+TP_LOSS_RTOL, TP_GNORM_RTOL, TP_GRAD_LEAF_RTOL = 2e-3, 2e-3, 5e-2
+TP_TIMEOUT = 600        # seconds for 17a's two processes
+DRYRUN_ARCHS = ("tinyllama-1.1b", "falcon-mamba-7b")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+DRYRUN_WORKERS = 4      # 17b's host processes, beside 17a's two
+
+
+def tp_model(preset, kind="train"):
+    """Full tinyllama-1.1b's Model: the train shape, or the serve one
+    (cache of TP_CACHE positions)."""
+    from repro_torch.models.model_zoo import Model
+    cfg, run = train_run("tinyllama-1.1b", TP_SEQ, TP_BATCH)
+    if kind != "train":
+        from repro_torch.configs.base import ShapeProfile
+        run = run.with_(shape=ShapeProfile("serve", TP_CACHE, TP_BATCH,
+                                           "decode"))
+    return Model(run.with_(sharding_preset=preset))
+
+
+def tp_inputs(model):
+    """(params drawn on the card from seed 0, the train batch, the
+    prompt)."""
+    import torch
+    from repro_torch._tree import to_device
+    from repro_torch.data.pipeline import SyntheticLMData
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    batch = to_device(SyntheticLMData(model.cfg, model.run.shape, seed=0)
+                      .batch(0), "cuda")
+    return params, batch, {"tokens": batch["tokens"][:, :TP_PROMPT]}
+
+
+def tp_serve(model, params, prompt, cache, tokens=None, place=lambda t: t):
+    """The prefill and TP_DECODE decode steps: (logits, each on the host
+    as f32, the greedy tokens; given ``tokens``, teacher-forced with
+    them)."""
+    import torch
+    logits, cache = model.prefill(params, prompt, cache)
+    out, toks = [logits], []
+    for i in range(TP_DECODE):
+        tok = torch.argmax(full(logits), -1).to(torch.int32) \
+            if tokens is None else tokens[i].cuda()
+        toks.append(tok.cpu())
+        logits, cache = model.decode_step(params, place(tok), cache)
+        out.append(logits)
+    return [full(x).float().cpu() for x in out], toks
+
+
+def full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def logits_agree(got, want):
+    import torch
+    a, b = torch.cat(want), torch.cat(got)
+    return (float((b - a).norm() / a.norm()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def rank_17a(rank, world, workdir):
+    """One of phase 17a's two processes (``chip_smoke.py --rank17a R W
+    DIR``): each layout's train step, prefill and decode steps over
+    DTensor-placed trees; writes its records and launched shape keys."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import _collectives as coll
+    from repro_torch.parallel.sharding import distribute_tree, use_mesh
+    sys.stdout = open(os.path.join(workdir, f"rank{rank}.out"), "w",
+                      buffering=1)
+    sys.stderr = sys.stdout
+    torch.cuda.set_device(0)
+    for mod in kernel_counters().values():
+        mod.build()
+    watch_launch_shapes()
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=TP_TIMEOUT))
+    out = {"records": []}
+    try:
+        plain = torch.load(os.path.join(workdir, "plain.pt"),
+                           map_location="cpu", weights_only=False,
+                           mmap=True)
+        for shape, preset in TP_LAYOUTS:
+            model = tp_model(preset)
+            params, batch, prompt = tp_inputs(model)
+            mesh = make_mesh(shape, ("data", "model"), "cuda")
+            path = f"17a {preset} data {shape[0]} model {shape[1]}"
+            # both processes drew the same params and batch: each takes
+            # its shards of its own copy
+            dp = distribute_tree(params, model.param_shardings(mesh), None)
+            opt = distribute_tree(model.opt_init(params),
+                                  model.opt_shardings(mesh), None)
+            db = distribute_tree(batch, model.batch_shardings(mesh), None)
+            del params
+            local_gb = sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in tree_leaves(dp) + tree_leaves(opt)) / 1e9
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            coll.reset_counts()
+            FA_SEEN.clear()
+            _PATH[0] = path
+            try:
+                t0 = time.perf_counter()
+                with use_mesh(mesh):
+                    p2, opt, m = model.train_step(dp, opt, db)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                train_launches = read_counters()[0]
+                reset_counters()
+                serve = tp_model(preset, "serve")
+                sh = serve.batch_shardings(mesh)
+                t0 = time.perf_counter()
+                with use_mesh(mesh):
+                    logits, toks = tp_serve(
+                        serve, dp, distribute_tree(
+                            prompt, {"tokens": sh["tokens"]}, None),
+                        distribute_tree(serve.init_cache("cuda"),
+                                        serve.cache_shardings(mesh), None),
+                        plain["tokens"], lambda t: distribute_tree(
+                            t, serve.token_sharding(mesh), None))
+                torch.cuda.synchronize()
+                serve_s = time.perf_counter() - t0
+            finally:
+                _PATH[0] = None
+            serve_launches = read_counters()[0]
+            peak = torch.cuda.max_memory_allocated()
+            counts = coll.counts()
+            m = {k: float(v) for k, v in m.items()}
+            p2 = [t.full_tensor() for t in tree_leaves(p2)]
+            # each gradient leaf, as AdamW's first moment, against the
+            # plain step's: rel norm of the difference
+            grad_rel = []
+            for t, w in zip(tree_leaves(opt["mu"]), plain["mu"]):
+                w = w.cuda()
+                grad_rel.append(float((t.full_tensor() - w).norm()
+                                      / w.norm()))
+            worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+            del opt, dp, db
+            ratio = adamw_first_step_ratio(p2, plain["params"],
+                                           plain["metrics"]["lr"])
+            rel, agree = logits_agree(logits, plain["logits"])
+            rec = {"path": path, "layout": {"data": shape[0],
+                                            "model": shape[1]},
+                   "preset": preset, "train_s": train_s, "serve_s": serve_s,
+                   "peak_device_gb": peak / 1e9,
+                   "local_params_and_state_gb": local_gb, "metrics": m,
+                   "loss_rel": abs(m["loss"] - plain["metrics"]["loss"])
+                   / abs(plain["metrics"]["loss"]),
+                   "grad_norm_rel": abs(m["grad_norm"]
+                                        - plain["metrics"]["grad_norm"])
+                   / plain["metrics"]["grad_norm"],
+                   "grad_leaf_rel_max": grad_rel[worst],
+                   "grad_leaf_rel_worst": worst,
+                   "grad_leaf_rel_median": sorted(grad_rel)[len(grad_rel)
+                                                           // 2],
+                   "param_diff_over_adamw_bound": ratio,
+                   "logits_rel_err": rel, "argmax_agree": agree,
+                   "launches": {k: train_launches[k] + serve_launches[k]
+                                for k in train_launches},
+                   "train_launches": train_launches,
+                   "serve_launches": serve_launches,
+                   "shape_keys": sorted(list(k) for k in FA_SEEN),
+                   "collective_bytes": counts["bytes"],
+                   "collective_calls": counts["calls"],
+                   "card": card_line()}
+            print("  tp " + json.dumps(rec), flush=True)
+            out["records"].append(rec)
+            del p2, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump({**out, "launched": [
+                [list(k), p] for k, p in
+                LAUNCHED["flash_attention_fwd"].items()]}, f)
+    return 0
+
+
+def phase_tensor_parallel(beside=None):
+    """Phase 17a: the plain step, prefill and decode steps of full
+    tinyllama-1.1b in this process, then both layouts in two gloo
+    processes on cuda:0, each held against them. The processes' launched
+    shape keys join phase 13's. ``beside`` (phase 17b, host work that
+    launches nothing) runs in this process while the two run; its result
+    comes back with theirs."""
+    print("== phase 17a: tensor parallelism and FSDP storage, full "
+          "tinyllama-1.1b, two gloo processes on cuda:0: (data 1, model 2) "
+          "dp_tp and (data 2, model 1) fsdp", flush=True)
+    import tempfile
+    import torch
+    from repro_torch._tree import tree_leaves
+    with tempfile.TemporaryDirectory() as tmp:
+        model = tp_model("fsdp")
+        params, batch, prompt = tp_inputs(model)
+        t0 = time.perf_counter()
+        p2, opt, m = model.train_step(params, model.opt_init(params), batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        mu = [t.cpu() for t in tree_leaves(opt["mu"])]
+        del opt
+        serve = tp_model("fsdp", "serve")
+        logits, toks = tp_serve(serve, params, prompt,
+                                serve.init_cache("cuda"))
+        plain = {"params": [t.cpu() for t in tree_leaves(p2)], "mu": mu,
+                 "metrics": {k: float(v) for k, v in m.items()},
+                 "logits": logits, "tokens": toks}
+        torch.save(plain, os.path.join(tmp, "plain.pt"))
+        print(f"  plain step {plain_s:.3f} s, "
+              f"{json.dumps(plain['metrics'])}", flush=True)
+        del params, p2, batch, m, mu, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--rank17a", str(r), "2", tmp], env=env)
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        try:
+            done = beside() if beside is not None else None
+            while any(q.poll() is None for q in procs) and all(
+                    q.returncode in (None, 0) for q in procs) and \
+                    time.perf_counter() - t0 < TP_TIMEOUT:
+                time.sleep(0.2)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+            for r in range(2):
+                log = os.path.join(tmp, f"rank{r}.out")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        for line in f.read().splitlines()[-40:]:
+                            print(f"  [rank {r}] {line}", flush=True)
+        check(all(q.returncode == 0 for q in procs),
+              f"both 17a processes exited 0 in "
+              f"{time.perf_counter() - t0:.3f} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            for key, path in res["launched"]:
+                LAUNCHED["flash_attention_fwd"].setdefault(tuple(key), path)
+            ranks.append(res)
+    layers = model.cfg.n_layers
+    for res in ranks:
+        for rec in res["records"]:
+            label = rec["path"]
+            check(rec["loss_rel"] <= TP_LOSS_RTOL,
+                  f"{label}: loss within rel {TP_LOSS_RTOL} of the plain "
+                  f"step's ({rec['loss_rel']:.3e})")
+            check(rec["grad_norm_rel"] <= TP_GNORM_RTOL,
+                  f"{label}: grad_norm within rel {TP_GNORM_RTOL} "
+                  f"({rec['grad_norm_rel']:.3e})")
+            check(rec["grad_leaf_rel_max"] <= TP_GRAD_LEAF_RTOL,
+                  f"{label}: every gradient leaf within rel "
+                  f"{TP_GRAD_LEAF_RTOL} of the plain step's (largest "
+                  f"{rec['grad_leaf_rel_max']:.3e}, leaf "
+                  f"{rec['grad_leaf_rel_worst']}; median "
+                  f"{rec['grad_leaf_rel_median']:.3e})")
+            check(rec["param_diff_over_adamw_bound"] <= 1.0,
+                  f"{label}: params within one AdamW step's reach "
+                  f"({rec['param_diff_over_adamw_bound']:.4f})")
+            check(rec["logits_rel_err"] <= LOGITS_REL_TOL
+                  and rec["argmax_agree"] >= ARGMAX_AGREE_MIN,
+                  f"{label}: prefill and {TP_DECODE} decode steps' logits "
+                  f"rel err {rec['logits_rel_err']:.3e} <= "
+                  f"{LOGITS_REL_TOL}, argmax {rec['argmax_agree']:.3f} >= "
+                  f"{ARGMAX_AGREE_MIN}")
+            # remat: forward and recompute per layer, then the prefill's
+            want = 2 * layers + layers
+            heads = model.cfg.n_heads // rec["layout"]["model"]
+            rows = TP_BATCH // rec["layout"]["data"]
+            local = [k for k in rec["shape_keys"]
+                     if k[0] == rows and k[3] == heads]
+            check(rec["launches"]["flash_attention_fwd"] == want and local,
+                  f"{label}: flash launched {want} times "
+                  f"({rec['launches']}), at the local shape "
+                  f"({rows} rows, {heads} heads): {local}")
+    return {"ranks": ranks, "beside": done}
+
+
+def rank_17b(out_path, cells):
+    """One of phase 17b's processes (``chip_smoke.py --cells17b OUT
+    CELLS``): the dry run of each (arch, shape, mesh) cell in the JSON list
+    CELLS, the records written to OUT."""
+    from repro_torch.launch import dryrun
+    recs = [dryrun.run_cell(arch, shape, mesh_kind, device="cuda")
+            for arch, shape, mesh_kind in json.loads(cells)]
+    with open(out_path, "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def phase_dryrun():
+    """Phase 17b: the dry run on the card's path (fake CUDA tensors, a
+    fake process group of 256 or 512 ranks): each cell ``ok``, one line
+    per cell as the reference's ``main()`` prints, the kernels' FLOPs
+    counted where their path runs them. The cells are host work on fake
+    tensors: DRYRUN_WORKERS processes share them, each taking one
+    train_4k cell (about 35 s) and two of the light ones."""
+    print("== phase 17b: the dry run of tinyllama-1.1b and falcon-mamba-7b "
+          "on the production meshes, fake CUDA tensors", flush=True)
+    import tempfile
+    from repro_torch.launch import dryrun
+    cells = [(a, s, m) for a in DRYRUN_ARCHS for s in DRYRUN_SHAPES
+             for m in ("single", "multi")]
+    order = ([c for c in cells if c[1] == "train_4k"]
+             + [c for c in cells if c[1] != "train_4k"])
+    shares = [order[i::DRYRUN_WORKERS] for i in range(DRYRUN_WORKERS)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    by_cell = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for i, share in enumerate(shares):
+            with open(os.path.join(tmp, f"w{i}.out"), "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--cells17b",
+                     os.path.join(tmp, f"w{i}.json"), json.dumps(share)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        try:
+            while any(q.poll() is None for q in procs) and all(
+                    q.returncode in (None, 0) for q in procs) and \
+                    time.perf_counter() - t0 < TP_TIMEOUT:
+                time.sleep(0.2)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+        for i, q in enumerate(procs):
+            if q.returncode != 0:
+                with open(os.path.join(tmp, f"w{i}.out")) as f:
+                    for line in f.read().splitlines()[-40:]:
+                        print(f"  [17b process {i}] {line}", flush=True)
+        check(all(q.returncode == 0 for q in procs),
+              f"the {DRYRUN_WORKERS} 17b processes exited 0 in "
+              f"{time.perf_counter() - t0:.3f} s")
+        for i in range(DRYRUN_WORKERS):
+            with open(os.path.join(tmp, f"w{i}.json")) as f:
+                for rec in json.load(f):
+                    by_cell[(rec["arch"], rec["shape"], rec["mesh"])] = rec
+    recs = []
+    for arch, shape, mesh_kind in cells:
+        rec = by_cell[(arch, shape, mesh_kind)]
+        print("  " + dryrun.status_line(rec), flush=True)
+        rec.pop("traceback", None) if rec["ok"] else None
+        keep = ("arch", "shape", "mesh", "ok", "error", "chips",
+                "memory", "per_device", "collectives",
+                "collective_span", "kernel_flops", "roofline",
+                "model_flops", "model_vs_hlo", "wall_s")
+        print("  dryrun " + json.dumps({k: rec.get(k) for k in keep}),
+              flush=True)
+        check(rec["ok"], f"dry run {arch} x {shape} x {mesh_kind}: "
+              f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        kind = dryrun.SHAPES[shape].kind
+        kernel = ("flash_attention_fwd" if arch.startswith("tiny")
+                  else "selective_scan_fwd")
+        if kind != "decode":    # decode runs no kernel
+            check(rec["kernel_flops"].get(kernel, 0) > 0,
+                  f"{arch} x {shape} x {mesh_kind}: {kernel}'s "
+                  f"FLOPs counted ({rec['kernel_flops']})")
+        recs.append(rec)
+    return recs
+
+
 # ----------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2467,6 +2891,14 @@ def main() -> int:
     for rec in md + [r for rank in md_two for r in rank]:   # both of 16c's
         fa_paths[rec["path"]] = (fa_paths.get(rec["path"], 0)
                                  + rec["launches"]["flash_attention_fwd"])
+    # 17b, the dry run (host work on fake tensors), runs here while 17a's
+    # two processes run on the card
+    tp = timed("phase 17a-b", phase_tensor_parallel,
+               lambda: timed("phase 17b", phase_dryrun))
+    for res in tp["ranks"]:                             # both processes'
+        for rec in res["records"]:
+            fa_paths[rec["path"]] = (fa_paths.get(rec["path"], 0)
+                                     + rec["launches"]["flash_attention_fwd"])
     check(by_path["selective_scan_fwd"].get("serve jamba-v0.1-52b")
           and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
           "the jamba serve path launched both kernels")
@@ -2541,4 +2973,13 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank16c"]:      # one of phase 16c's processes
         sys.exit(rank_16c(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--rank17a"]:      # one of phase 17a's processes
+        # CUDA tensors over gloo: the all-gather DTensor issues, which gloo
+        # lacks for them, carried as a list all-gather (PERF.md §6)
+        from repro_torch.parallel._collectives import carry_gloo_cuda
+        with carry_gloo_cuda():
+            rc = rank_17a(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(rc)
+    if sys.argv[1:2] == ["--cells17b"]:     # one of phase 17b's processes
+        sys.exit(rank_17b(sys.argv[2], sys.argv[3]))
     sys.exit(main())

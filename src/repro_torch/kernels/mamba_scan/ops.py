@@ -20,12 +20,47 @@ in torch ops. Two ``autograd.Function``s carry it, as the reference's two
   * CPU tensors: the closed-form path's forward (``ref.cf_scan``) and
     backward, chunked by ``_mem_chunk`` and with the scan pairs
     materialized in ``scan_dtype`` (``_cf_scan``).
+
+The launch is the custom op ``repro_torch::selective_scan_fwd``: on real
+CUDA tensors it calls the kernel, on fake ones (``FakeTensorMode``, the
+dry run) it gives the outputs' shapes only, and ``FlopCounterMode`` counts
+it by ``flops``. DTensors (tensor parallelism) go through ``local_map``:
+each process scans its own batch rows and channels.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.mamba_scan import kernel, ref
+from repro_torch.parallel.sharding import (as_dtensor, is_dtensor,
+                                           keep_shards, redistribute)
+
+
+def flops(Bt, L, di, N) -> int:
+    """The recurrence's f32 FLOPs, four per (row, step, channel, state)
+    element, as many as its exponentials."""
+    return 4 * Bt * L * di * N
+
+
+@torch.library.custom_op("repro_torch::selective_scan_fwd",
+                         mutates_args=())
+def _launch(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+            h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    return kernel.selective_scan_fwd(x, dt, A, B, C, D, h0)
+
+
+@_launch.register_fake
+def _(x, dt, A, B, C, D, h0):
+    return x.new_empty(x.shape), h0.new_empty(h0.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan_fwd)
+def _launch_flops(x_shape, dt_shape, A_shape, *_, **__) -> int:
+    return flops(*x_shape, A_shape[1])
 
 
 def _mem_chunk(chunk: int, x) -> int:
@@ -90,7 +125,7 @@ class _KernelScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0, chunk):
-        out = kernel.selective_scan_fwd(x, dt, A, B, C, D, h0)
+        out = _launch(x, dt, A, B, C, D, h0)
         ctx.save_for_backward(x, dt, A, B, C, D, h0)
         ctx.chunk = chunk
         return out
@@ -119,9 +154,46 @@ class _ClosedFormScan(torch.autograd.Function):
                                  chunk=ctx.chunk, sdt=ctx.sdt), None, None)
 
 
+def _sharded(x, dt, A, B, C, D, h0, chunk, scan_dtype):
+    """DTensor inputs: each process's batch rows and channels (``di``)
+    through the scan (``local_map``), the channels being independent. x
+    keeps its batch and channel splits and gathers the rest (time is
+    never split); dt, A, D and h0 follow it, B and C take its batch split
+    only. Gradients of the inputs a split leaves whole on a process are
+    partial sums over the mesh dims of that split."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x = keep_shards(x, (0, 2))
+    mesh, x_pl = x.device_mesh, list(x.placements)
+    h0 = as_dtensor(h0, mesh)
+
+    def pl(batch, chan, none=Replicate()):
+        """Placements: ``batch`` on x's batch split, ``chan`` on its
+        channel split, ``none`` elsewhere."""
+        return [batch if p == Shard(0) else chan if p == Shard(2) else none
+                for p in x_pl]
+
+    R, P = Replicate(), Partial()
+    chan = pl(R, Shard(0))                      # A, D: (di, ...)
+    rows = pl(Shard(0), R)                      # B, C: (Bt, L, N)
+    h_pl = pl(Shard(0), Shard(1))               # h0: (Bt, di, N)
+    ins = (x_pl, x_pl, chan, rows, rows, chan, h_pl)
+    grads = (x_pl, x_pl, pl(P, Shard(0)), pl(Shard(0), P), pl(Shard(0), P),
+             pl(P, Shard(0)), h_pl)
+    args = [x] + [redistribute(t, want) for t, want in
+                  zip((dt, A, B, C, D, h0), ins[1:])]
+    fn = local_map(
+        lambda *a: selective_scan(*a, chunk=chunk, scan_dtype=scan_dtype),
+        out_placements=(x_pl, h_pl), in_placements=ins,
+        in_grad_placements=grads, device_mesh=mesh)
+    return fn(*args)
+
+
 def selective_scan(x, dt, A, B, C, D, h0, *, chunk: int = 512,
                    scan_dtype: str = "float32"):
     """Shapes as in ``ref.selective_scan_ref``. Returns (y, h_last)."""
+    if is_dtensor(x):
+        return _sharded(x, dt, A, B, C, D, h0, chunk, scan_dtype)
     if x.is_cuda:
         return _KernelScan.apply(x, dt, A, B, C, D, h0, chunk)
     if x.device.type != "cpu":

@@ -12,17 +12,26 @@ and step functions.
     model.init_cache(device)                # zeroed decode caches
     model.prefill / model.decode_step       # serving step functions
 
-The port of ``repro.models.model_zoo.Model``, the dry-run case aside. The
-pspec methods resolve on any object with a ``shape`` mapping (an abstract
-mesh will do); the sharding methods need a live mesh
-(``launch.mesh``). The multi-device steps are
-``optim.grad_compress.multipod_train_step`` and
-``parallel.pipeline.pipeline_train_step``.
+The port of ``repro.models.model_zoo.Model``, the dry-run case aside
+(``launch.dryrun``). The pspec methods resolve on any object with a
+``shape`` mapping (an abstract mesh will do); the sharding methods need a
+live mesh (``launch.mesh``).
+
+The steps take plain tensors, or trees placed on a live mesh
+(``distribute_tree(tree, model.param_shardings(mesh))`` and the like)
+under ``use_mesh(mesh)``, the counterpart of the reference's
+``jax.jit(..., in_shardings=...)``: the model then runs on DTensors
+(tensor parallelism over ``model``, FSDP storage over ``data``), steered
+by the activation constraints under the model's rules, and the outputs
+keep the inputs' placements. Metrics come back as plain scalars. The
+other multi-device steps are ``optim.grad_compress.multipod_train_step``
+and ``parallel.pipeline.pipeline_train_step``.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -34,7 +43,17 @@ from repro_torch.models.params import init_params, logical_axes, torch_dtype
 from repro_torch.optim.optimizers import (clip_by_global_norm, make_optimizer,
                                           opt_state_axes)
 from repro_torch.optim.schedules import cosine_schedule
-from repro_torch.parallel.sharding import get_rules, tree_pspecs, tree_shardings
+from repro_torch.parallel.sharding import (NamedSharding, get_rules,
+                                           is_dtensor, placements,
+                                           redistribute, replicated,
+                                           tree_pspecs,
+                                           tree_shardings, use_rules)
+
+
+def _plain(v):
+    """A metric as a plain tensor: a DTensor's value, reduced if it is a
+    pending sum."""
+    return replicated(v).to_local() if is_dtensor(v) else v
 
 
 @dataclass
@@ -125,34 +144,65 @@ class Model:
         val, axes = self.cache_spec()
         return tree_shardings(self.rules, axes, val, mesh)
 
+    def token_sharding(self, mesh):
+        """The decode tokens' (B,) placement: split over the batch axes
+        where they divide B, as the reference's dry run places them."""
+        axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+        n = mesh.axis_size(axes)
+        spec = (axes,) if axes and n > 1 and \
+            self.run.shape.global_batch % n == 0 else ()
+        return NamedSharding(mesh._live(), placements(spec, mesh), spec)
+
     # ------------------------------------------------------------ step fns
+    def scope(self):
+        """What every step runs under: the model's rules for the
+        activation sites and, on DTensors, plain tensors made inside the
+        model (positions, masks, zeros) taken as replicated."""
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        stack = contextlib.ExitStack()
+        stack.enter_context(use_rules(self.rules))
+        stack.enter_context(implicit_replication())
+        return stack
+
     # Steps run on the runtime's lane threads, and grad mode is per
     # thread: the mode is set inside each step.
     def grads(self, params, batch):
         """(gradient leaves, in ``tree_leaves(params)`` order; metrics) of
         the loss on ``batch``. Gradients of detached copies: the tensors
-        MDSS holds never get requires_grad."""
+        MDSS holds never get requires_grad.
+
+        On DTensors each gradient comes back laid out as its parameter:
+        this is where the sums the backward left pending over the batch
+        axes are reduced, an all-reduce for a replicated parameter and a
+        reduce-scatter for one split over ``data`` (FSDP)."""
         leaves = [p.detach().requires_grad_()
                   for p in _tree.tree_leaves(params)]
-        with torch.enable_grad():
+        with torch.enable_grad(), self.scope():
             loss, metrics = tfm.forward_train(
                 self.cfg, self.run, _tree.unflatten_like(params, leaves),
                 batch)
+            if is_dtensor(loss):     # seeded once, not once per process
+                loss = replicated(loss)
             grads = torch.autograd.grad(loss, leaves)
-        return list(grads), {k: v.detach() for k, v in metrics.items()}
+            grads = [redistribute(g, p.placements) if is_dtensor(g) else g
+                     for g, p in zip(grads, leaves)]
+        return list(grads), {k: _plain(v.detach())
+                             for k, v in metrics.items()}
 
     def apply_grads(self, params, opt_state, grads, metrics, gnorm=None):
         """Clip the gradient leaves by their global norm (``gnorm`` if
         given) and take one optimizer step: (params, opt_state, metrics
         with grad_norm and lr)."""
-        with torch.no_grad():
+        with torch.no_grad(), self.scope():
             grads, gnorm = clip_by_global_norm(
                 _tree.unflatten_like(params, grads), self.run.grad_clip,
                 gnorm)
             lr = self.schedule(opt_state["step"] + 1)   # 0-based counter
             params, opt_state = self.opt_update(params, grads, opt_state,
                                                 lr=lr)
-        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
+        return params, opt_state, dict(metrics, grad_norm=_plain(gnorm),
+                                       lr=_plain(lr))
 
     @property
     def train_step(self) -> Callable:
@@ -190,8 +240,9 @@ class Model:
         cfg, run = self.cfg, self.run
 
         def fn(params, batch):
-            with torch.no_grad():
-                return tfm.forward_train(cfg, run, params, batch)[1]
+            with torch.no_grad(), self.scope():
+                return {k: _plain(v) for k, v in tfm.forward_train(
+                    cfg, run, params, batch)[1].items()}
 
         return fn
 
@@ -200,7 +251,7 @@ class Model:
         cfg, run = self.cfg, self.run
 
         def fn(params, batch, cache):
-            with torch.no_grad():
+            with torch.no_grad(), self.scope():
                 return tfm.forward_prefill(cfg, run, params, batch, cache)
 
         return fn
@@ -209,8 +260,11 @@ class Model:
     def decode_step(self) -> Callable:
         cfg, run = self.cfg, self.run
 
-        def fn(params, tokens, cache):
-            with torch.no_grad():
-                return tfm.forward_decode(cfg, run, params, tokens, cache)
+        def fn(params, tokens, cache, pos: Optional[int] = None):
+            """``pos``: the caches' fill position, read from them when not
+            given (the dry run gives it: fake caches hold no values)."""
+            with torch.no_grad(), self.scope():
+                return tfm.forward_decode(cfg, run, params, tokens, cache,
+                                          pos)
 
         return fn

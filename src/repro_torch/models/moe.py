@@ -27,6 +27,14 @@ reference leaves them to XLA. Ties in the router's top-k go to the lower
 expert index, as ``jax.lax.top_k`` breaks them (a stable descending
 sort), and the capacity drops follow the reference's stable sort.
 
+On DTensors (tensor parallelism and FSDP storage, ``_moe_sharded``) the
+sort dispatch runs as the reference's does under GSPMD: groups split over
+the batch axes, experts over ``model``, at the reference's five
+constraint sites. The routing, sort, cumsum and scatters of a group and
+the combine's gather have no DTensor rule; they are independent per
+group, so each process runs them on its own groups (``local_map``), the
+router gathered whole and the expert outputs gathered over ``model``.
+
 Determinism on the card: the only scatter with duplicate indices writes
 the dropped assignments into the sentinel slot ``E*C``, which is never
 read, so ``scatter`` (whose winner among duplicates is unspecified on
@@ -44,7 +52,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp, mlp_template
 from repro_torch.models.params import ParamSpec
 from repro_torch.parallel import _collectives as coll
-from repro_torch.parallel.sharding import get_mesh, use_mesh
+from repro_torch.parallel.sharding import (constrain, get_mesh, is_dtensor,
+                                           keep_shards, redistribute,
+                                           use_mesh)
 
 CAPACITY_FACTOR = 1.25
 GROUP_SIZE = 2048
@@ -190,8 +200,106 @@ def _combine(yexp, slot, keep, gate_vals):
     return torch.sum(rows * gate_vals[..., None].to(yexp.dtype), dim=2)
 
 
+def _experts_sharded(p, xin):
+    """``_experts`` on DTensors, each process on its own (group, expert)
+    blocks (``local_map``; the blocks are independent): xin keeps its
+    group and expert splits, each expert weight takes the expert split
+    and is gathered whole over the rest (fsdp's all-gather). A weight's
+    gradient is a pending sum over the mesh dims that split the groups.
+    The hidden activation is constrained between the two products, as
+    the reference's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl = list(keep_shards(xin, (0, 1)).placements)
+    w_pl = [Shard(0) if pl == Shard(1) else Replicate() for pl in x_pl]
+    w_grad = [Partial() if pl == Shard(0) else w for pl, w in zip(x_pl, w_pl)]
+
+    def local(fn, *args):
+        return local_map(fn, out_placements=x_pl,
+                         in_placements=(x_pl,) + (w_pl,) * (len(args) - 1),
+                         in_grad_placements=(x_pl,) + (w_grad,) * (
+                             len(args) - 1),
+                         device_mesh=xin.device_mesh)(
+            redistribute(args[0], x_pl),
+            *(redistribute(w, w_pl) for w in args[1:]))
+
+    h = local(lambda x, wg, wu: F.silu(torch.einsum("gecd,edf->gecf", x, wg))
+              * torch.einsum("gecd,edf->gecf", x, wu),
+              xin, p["wi_gate"], p["wi_up"])
+    h = constrain(h, None, "act_moe_group", "act_experts", None, "act_moe_ff")
+    return local(lambda hh, wo: torch.einsum("gecf,efd->gecd", hh, wo),
+                    h, p["wo"])
+
+
+def _reshape_rows(x, shape):
+    """``x.reshape(shape)``, both shapes rows of one token order, on a
+    DTensor: each process reshapes its own rows (``local_map``), the
+    leading dim split as ``x``'s (gathered first where the rows do not
+    split evenly into the new leading dim)."""
+    import math
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    pl = [p if p == Shard(0) else Replicate() for p in x.placements]
+    n = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(0))
+    if shape[0] % n or x.shape[0] % n:
+        pl, n = [Replicate()] * mesh.ndim, 1
+    local = (shape[0] // n,) + tuple(shape[1:])
+    return local_map(lambda t: t.reshape(local), out_placements=pl,
+                     in_placements=(pl,), in_grad_placements=(pl,),
+                     device_mesh=mesh)(redistribute(x, pl))
+
+
+def _moe_sharded(cfg: ModelConfig, p, x):
+    """The sort dispatch on DTensors (see the module's note)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    E = cfg.n_experts
+    G, Tg = _grouping(B * S)
+    C = _capacity(cfg, Tg)
+    xt = constrain(_reshape_rows(x, (G, Tg, D)), None, "act_batch", None,
+                   None)
+    # split by group only; a sum over the groups is partial where they are
+    g_pl = [pl if pl.is_shard(0) else Replicate() for pl in xt.placements]
+    part = [Partial() if pl.is_shard(0) else pl for pl in g_pl]
+    whole = [Replicate()] * len(g_pl)
+    mesh = xt.device_mesh
+    xt = redistribute(xt, g_pl)
+
+    def dispatch(xl, rl):
+        probs, gate_vals, idx = _route(cfg, {"router": rl}, xl)
+        slot, keep, token_for_slot, valid = _dispatch(idx, E, C)
+        counts = torch.zeros(E, dtype=torch.float32, device=idx.device)
+        counts.index_add_(0, idx.reshape(-1),
+                          torch.ones(idx.numel(), device=idx.device))
+        return (_expert_inputs(xl, token_for_slot, valid, E, C), slot, keep,
+                gate_vals, counts, probs.reshape(-1, E).sum(0))
+
+    # the router whole on every process (fsdp splits its embed dim)
+    xin, slot, keep, gate_vals, counts, psum = local_map(
+        dispatch, out_placements=(g_pl,) * 4 + (part, part),
+        in_placements=(g_pl, whole), in_grad_placements=(g_pl, part),
+        device_mesh=mesh)(xt, redistribute(p["router"], whole))
+    xin = constrain(xin, None, "act_moe_group", "act_experts", None, None)
+    yexp = _experts_sharded(p, xin)
+    # the combine's gather reads every expert's slots: the expert outputs
+    # are gathered whole over model
+    y = local_map(_combine, out_placements=g_pl, in_placements=(g_pl,) * 4,
+                  in_grad_placements=(g_pl,) * 4, device_mesh=mesh)(
+        redistribute(yexp, g_pl), slot, keep, gate_vals)
+    if cfg.n_shared_experts:
+        y = y + mlp(cfg, p["shared"], xt)
+    n_tok = B * S
+    aux = cfg.router_aux_weight * E * torch.sum(
+        (counts / n_tok) * (psum / n_tok))
+    return _reshape_rows(y, (B, S, D)), aux
+
+
 def moe(cfg: ModelConfig, p, x):
     """x: (B,S,D) -> (y, aux_loss). Grouped sort-based dispatch."""
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x)
     mesh, axes, n = _token_group()
     B, S, D = x.shape
     E = cfg.n_experts
@@ -221,7 +329,8 @@ def moe_manual_ep(cfg: ModelConfig, p, x):
     ``r`` owns experts ``[r*E/n_ep, (r+1)*E/n_ep)`` of the replicated
     expert weights. Falls back to :func:`moe`, as the reference does, with
     no mesh, one such process, or E or G that does not split ``n_ep``
-    ways."""
+    ways. DTensor inputs take the sort dispatch's sharded path only."""
+    _refuse_dtensor("manual_ep", x)
     mesh, ep_axes, n_ep = _token_group()
     B, S, D = x.shape
     E = cfg.n_experts
@@ -231,7 +340,8 @@ def moe_manual_ep(cfg: ModelConfig, p, x):
     E_loc, G_loc = E // n_ep, G // n_ep
     C = _capacity(cfg, Tg)
 
-    xt = x.reshape(G_loc, Tg, D)
+    xt = constrain(x.reshape(G_loc, Tg, D), None, "act_moe_group", None,
+                   None)
     probs, gate_vals, idx = _route(cfg, p, xt)
     slot, keep, token_for_slot, valid = _dispatch(idx, E, C)
     xin = _expert_inputs(xt, token_for_slot, valid, E, C)   # (G_loc,E,C,D)
@@ -259,7 +369,15 @@ def moe_manual_ep(cfg: ModelConfig, p, x):
 # GShard one-hot einsum dispatch (reference)
 # ---------------------------------------------------------------------------
 
+def _refuse_dtensor(impl: str, x):
+    if is_dtensor(x):
+        raise NotImplementedError(
+            f"moe_impl={impl!r} on DTensors: tensor parallelism and FSDP "
+            f"storage run the sort dispatch (moe_impl='sort') only")
+
+
 def moe_gshard(cfg: ModelConfig, p, x):
+    _refuse_dtensor("gshard", x)
     mesh, axes, _ = _token_group()
     if mesh is not None:
         return _whole_batch(moe_gshard, cfg, p, x, mesh, axes)

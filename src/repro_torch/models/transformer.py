@@ -43,6 +43,8 @@ from repro_torch.models.layers import (adt, embed, embed_template, lm_logits,
                                        mlp, mlp_template, rmsnorm,
                                        rmsnorm_template, xent_loss)
 from repro_torch.models.params import ParamSpec, stack_specs, torch_dtype
+from repro_torch.parallel.sharding import (constrain, einsum, is_dtensor,
+                                           redistribute)
 
 
 def _has_attn(bt: str) -> bool:
@@ -68,11 +70,11 @@ def xattn_template(cfg: ModelConfig) -> dict:
 def xattn_full(cfg, p, x, enc_out, cache=None):
     """Decoder queries over the encoder output (non-causal, Sq != Skv);
     with ``cache``, a new cache holding the encoder's keys and values."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
+    k = einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = einsum("bsd,dhk->bshk", enc_out, p["wv"])
     o = fops.flash_attention(q, k, v, scale=cfg.hdim ** -0.5, causal=False)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = einsum("bshk,hkd->bsd", o, p["wo"])
     if cache is not None:
         cache = dict(cache, xk=k.to(cache["xk"].dtype),
                      xv=v.to(cache["xv"].dtype))
@@ -80,12 +82,12 @@ def xattn_full(cfg, p, x, enc_out, cache=None):
 
 
 def xattn_decode(cfg, p, x, cache):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = cache["xk"].to(q.dtype), cache["xv"].to(q.dtype)
     o = attn.attend(q, k, v, q_pos=torch.zeros(1, dtype=torch.long,
                                                 device=x.device),
                     kv_len=k.shape[1], scale=cfg.hdim ** -0.5, causal=False)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+    return einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +162,7 @@ def block_apply(cfg: ModelConfig, run: RunConfig, bt: str, p, x, *,
         else:
             m = mlp(cfg, p["mlp"], h)
         x = x + m
+    x = constrain(x, None, "act_batch", None, None)
     return x, cache, aux
 
 
@@ -192,7 +195,45 @@ def model_template(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _stack(trees):
-    return _tree.tree_map(lambda *xs: torch.stack(xs), *trees)
+    return _tree.tree_map(lambda *xs: _stack_leaf(xs), *trees)
+
+
+def _stack_leaf(xs):
+    """``torch.stack(xs)``; DTensors are stacked shard by shard
+    (``local_map``): the new leading dim (``layers``) is never split."""
+    if not is_dtensor(xs[0]):
+        return torch.stack(xs)
+    from torch.distributed.tensor.experimental import local_map
+    pl = [_moved(p, 1) for p in xs[0].placements]
+    return local_map(lambda *ts: torch.stack(ts), out_placements=pl,
+                     in_placements=(xs[0].placements,) * len(xs),
+                     device_mesh=xs[0].device_mesh)(*xs)
+
+
+def _unbind(a):
+    """``torch.unbind(a)``; a DTensor is unbound shard by shard
+    (``local_map``), its leading dim (``layers``) whole on every
+    process."""
+    if not is_dtensor(a):
+        return torch.unbind(a)
+    from torch.distributed.tensor.experimental import local_map
+    pl = [_moved(p, -1) for p in a.placements]
+    return local_map(lambda t: tuple(t.unbind(0)),
+                     out_placements=(pl,) * a.shape[0],
+                     in_placements=(a.placements,),
+                     in_grad_placements=(a.placements,),
+                     device_mesh=a.device_mesh)(a)
+
+
+def _moved(pl, by: int):
+    """Placement ``pl`` with its split dim moved by ``by`` (a dim added or
+    removed in front)."""
+    from torch.distributed.tensor import Shard
+    if type(pl) is Shard:
+        if pl.dim + by < 0:
+            raise ValueError(f"the stacked dim is split ({pl})")
+        return Shard(pl.dim + by)
+    return pl
 
 
 def _repeats(tree, reps: int):
@@ -200,7 +241,7 @@ def _repeats(tree, reps: int):
     leaf)."""
     if tree is None:
         return [None] * reps
-    per_leaf = [torch.unbind(a) for a in _tree.tree_leaves(tree)]
+    per_leaf = [_unbind(a) for a in _tree.tree_leaves(tree)]
     return [_tree.unflatten_like(tree, [u[r] for u in per_leaf])
             for r in range(reps)]
 
@@ -213,6 +254,11 @@ def _remat(run: RunConfig, fn):
     if run.remat == "none" or not torch.is_grad_enabled():
         return fn
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+# Callables ``(stage key, body) -> body`` that wrap each repeat's body of
+# a stage: the dry run's per-stage counts (``launch.comm_analysis``).
+STAGE_OBSERVERS: list = []
 
 
 def run_stages(cfg, run, params, x, *, mode, caches=None, pos=None,
@@ -243,6 +289,8 @@ def run_stages(cfg, run, params, x, *, mode, caches=None, pos=None,
             return xx, c_out, aux
 
         body = _remat(run, body) if mode == "full" else body
+        for observe in STAGE_OBSERVERS:
+            body = observe(key, body)
         c_out = []
         for lp, lc in zip(_repeats(params[key], reps), _repeats(c_in, reps)):
             x, cr, a = body(x, lp, lc)
@@ -277,6 +325,21 @@ def encode(cfg, run, params, batch):
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _next_labels(labels):
+    """``labels[:, 1:]`` with a 0 after the last: the MTP head's inputs.
+    On a DTensor each process shifts its own rows (``local_map``), the
+    sequence whole."""
+    shift = lambda t: F.pad(t[:, 1:], (0, 1))
+    if not is_dtensor(labels):
+        return shift(labels)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if p == Shard(0) else Replicate() for p in labels.placements]
+    return local_map(shift, out_placements=pl, in_placements=(pl,),
+                     device_mesh=labels.device_mesh)(
+        redistribute(labels, pl))
+
+
 def forward_train(cfg: ModelConfig, run: RunConfig, params, batch):
     """batch: tokens (B,S[-F]), labels (B,S[-F]), optional loss_mask and
     modality stubs (``frontend_embeds`` (B,F,D), ``encoder_embeds``).
@@ -302,7 +365,7 @@ def forward_train(cfg: ModelConfig, run: RunConfig, params, batch):
                      None if mask is None else mask[:, 1:])
     metrics = {"xent": loss, "aux": aux}
     if cfg.mtp:
-        emb_next = embed(cfg, params["embed"], F.pad(labels[:, 1:], (0, 1)))
+        emb_next = embed(cfg, params["embed"], _next_labels(labels))
         h = torch.cat([rmsnorm(cfg, params["mtp_norm"], x[:, n_front:]),
                        emb_next], dim=-1) @ params["mtp_proj"]
         h, _, _ = block_apply(cfg, run, ATTN_DENSE, params["mtp_block"], h,
@@ -331,12 +394,14 @@ def forward_prefill(cfg, run, params, batch, cache):
 def cache_position(cache) -> int:
     """The fill position every layer's cache shares. One host read per
     decode step (not one per layer)."""
-    return int(cache["stage_0"]["pos_0"]["pos"][0])
+    pos = cache["stage_0"]["pos_0"]["pos"]
+    return int((pos.to_local() if is_dtensor(pos) else pos)[0])
 
 
-def forward_decode(cfg, run, params, tokens, cache):
-    """tokens: (B,) int. Returns (logits (B,V), cache)."""
-    pos = cache_position(cache)
+def forward_decode(cfg, run, params, tokens, cache, pos=None):
+    """tokens: (B,) int. Returns (logits (B,V), cache). ``pos``: the
+    caches' fill position, read from them when not given."""
+    pos = cache_position(cache) if pos is None else pos
     x = embed(cfg, params["embed"], tokens[:, None])
     x, cache, _ = run_stages(cfg, run, params, x, mode="decode",
                              caches=cache, pos=pos)

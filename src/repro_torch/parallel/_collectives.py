@@ -2,7 +2,9 @@
 counterparts of ``jax.lax.psum``, ``pmean``, ``all_gather``,
 ``all_to_all`` (``tiled=True``) and ``ppermute``, named by mesh axis as
 inside a ``shard_map``. This is the one module of the port that calls
-``torch.distributed``'s collectives.
+``torch.distributed``'s collectives by hand; the DTensor steps (tensor
+parallelism, FSDP storage) issue theirs through DTensor (``carry_gloo_cuda``
+stands in for the one gloo lacks for CUDA tensors, where a harness asks).
 
 Gradients. Each collective is an ``autograd.Function``. A process's
 backward seed is its own share of the objective, and the objective is the
@@ -26,6 +28,7 @@ stand-in for ``hlo_analysis.collective_bytes`` over the reference's HLO.
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Sequence, Tuple
 
 import torch
@@ -164,6 +167,34 @@ def _axis(axis, mesh) -> Tuple[object, int, int]:
     return group, mesh.axis_size(axis), dist.get_rank(group)
 
 
+class _Combine(torch.autograd.Function):
+    """An all-reduce whose result is one value every process holds, as a
+    replicated DTensor's: its gradient reaches each process's term as it
+    is (the other processes' copies are the same value, not more loss)."""
+
+    @staticmethod
+    def forward(ctx, x, op, group):
+        y = x.contiguous().clone()
+        _record("psum" if op == "sum" else f"p{op}", y)
+        dist.all_reduce(y, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def combine(x, op: str, groups):
+    """``x`` summed (``op="sum"``) or maxed over each process group of
+    ``groups`` in turn: one value held by every process of them, for code
+    inside a ``local_map`` whose output is replicated over those groups.
+    A max has no gradient here (take it of a detached tensor)."""
+    for g in groups:
+        x = _Combine.apply(x, op, g)
+    return x
+
+
 def psum(x, axis, mesh=None):
     group, _, _ = _axis(axis, mesh)
     return _PSum.apply(x, group)
@@ -193,3 +224,36 @@ def ppermute(x, axis, perm: Sequence[Tuple[int, int]], mesh=None):
 
 def axis_index(axis, mesh=None) -> int:
     return _axis(axis, mesh)[2]
+
+
+# ---------------------------------------------------------------------------
+# What gloo does not carry.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def carry_gloo_cuda():
+    """For a harness that runs CUDA tensors over a gloo group (several
+    processes on one card, which NCCL refuses). Gloo ends the process (a
+    segfault) on ``all_gather_into_tensor`` of CUDA tensors, the
+    functional all-gather that DTensor issues; it carries ``all_reduce``,
+    ``reduce_scatter_tensor`` and ``all_to_all_single`` of CUDA tensors
+    (PERF.md §6). Inside this context that op's CUDA implementation is
+    ``torch.distributed.all_gather`` into the chunks of the result, which
+    gloo carries, counted here as the all-gather asked for; on exit the
+    registration is removed."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    def gather(x, group_size, group_name):
+        out = x.new_empty((group_size * x.shape[0],) + tuple(x.shape[1:]))
+        x = x.contiguous()
+        _record("all_gather", x)
+        dist.all_gather(list(out.chunk(group_size)), x,
+                        group=_resolve_process_group(group_name))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    try:
+        lib.impl("all_gather_into_tensor", gather, "CUDA")
+        yield
+    finally:
+        lib._destroy()

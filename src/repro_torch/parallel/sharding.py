@@ -264,26 +264,31 @@ def placements(spec: PSpec, mesh: Mesh) -> tuple:
 def tree_shardings(rules: Rules, axes_tree, abstract_tree, mesh: Mesh):
     """Tree of :class:`NamedSharding` on the live ``mesh``."""
     dm = mesh._live()
-    return _tree.tree_map(
-        lambda s: NamedSharding(dm, placements(s, mesh), s),
-        tree_pspecs(rules, axes_tree, abstract_tree, mesh), is_leaf=is_axes)
+
+    def one(axes, t):
+        spec = resolve(rules, axes, t.shape, mesh)
+        return NamedSharding(dm, placements(spec, mesh), spec)
+    return _tree.tree_map(one, axes_tree, abstract_tree, is_leaf=is_axes)
 
 
-def distribute_tree(tree, shardings):
+def distribute_tree(tree, shardings, src_data_rank: Optional[int] = 0):
     """Place each tensor of ``tree`` by its :class:`NamedSharding` (a
     DTensor per leaf). Every process of the mesh must call it with the
     same full tensors: ``distribute_tensor`` sends each process its shard
-    of the first process's copy."""
+    of the first process's copy, or, with ``src_data_rank=None``, each
+    process takes its shard of its own copy (no message)."""
     from torch.distributed.tensor import distribute_tensor
     return _tree.tree_map(lambda x, s: distribute_tensor(
-        x, s.device_mesh, list(s.placements)), tree, shardings)
+        x, s.device_mesh, list(s.placements), src_data_rank=src_data_rank),
+        tree, shardings)
 
 
 # ---------------------------------------------------------------------------
-# The active mesh.
+# The active mesh and rules.
 # ---------------------------------------------------------------------------
 
 _ACTIVE = []        # the meshes in use; the last one is the model code's
+_RULES = []         # the rule sets in use; the last one is the model code's
 
 
 @contextlib.contextmanager
@@ -301,20 +306,148 @@ def get_mesh() -> Optional[Mesh]:
     return _ACTIVE[-1] if _ACTIVE else None
 
 
-def constrain(x, rules: Rules, *names: Optional[str]):
-    """Sharding-constrain an activation by logical dim names: a no-op
-    without a mesh, and on a mesh whose ``model`` axis has size 1 (the
-    batch axes are split by the step that runs the model). Nothing in the
-    port calls it yet: the model's activation sites go through it with
-    tensor parallelism over ``model``, which the steps refuse for now
-    (``optim.grad_compress.check_mesh``)."""
+@contextlib.contextmanager
+def use_rules(rules: Optional[Rules]):
+    """Make ``rules`` the set the model code's activation sites resolve by
+    until the block ends. The reference threads its rules through every
+    layer function; the port's layer functions read them from here, and
+    ``Model``'s steps enter their own."""
+    _RULES.append(rules)
+    try:
+        yield rules
+    finally:
+        _RULES.pop()
+
+
+def rules_in_use() -> Optional[Rules]:
+    return _RULES[-1] if _RULES else None
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def redistribute(x, want):
+    """``x`` (a DTensor) laid out by the placements ``want``: ``x`` itself
+    when it already is. A ``Partial`` placement becomes an all-reduce
+    (``Replicate``) or a reduce-scatter (``Shard``), a ``Shard`` that goes
+    an all-gather."""
+    want = tuple(want)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def as_dtensor(x, device_mesh):
+    """``x`` as a DTensor on ``device_mesh``: a plain tensor is taken as
+    the same whole value on every process (replicated)."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, device_mesh,
+                              [Replicate()] * device_mesh.ndim,
+                              run_check=False)
+
+
+def local_shape_and_offset(shape, device_mesh, placements):
+    """(this process's shard shape, its offset in the global tensor) for
+    a tensor of global ``shape`` laid out by ``placements``: ``Shard``
+    splits as ``torch.chunk``, nested in mesh order. Plain integer
+    arithmetic on the mesh coordinate, so it also holds for fake tensors
+    (the dry run)."""
+    from torch.distributed.tensor import Shard
+    shape, offset = list(shape), [0] * len(shape)
+    coord = device_mesh.get_coordinate()
+    for i, pl in enumerate(placements):
+        if not isinstance(pl, Shard):
+            continue
+        if type(pl) is not Shard:
+            raise NotImplementedError(f"placement {pl}")
+        n, d = device_mesh.size(i), pl.dim
+        chunk = -(-shape[d] // n)
+        start = min(shape[d], coord[i] * chunk)
+        offset[d] += start
+        shape[d] = min(shape[d], start + chunk) - start
+    return tuple(shape), tuple(offset)
+
+
+def replicated(x):
+    """``x`` (a DTensor) whole on every process of its mesh."""
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def keep_shards(x, dims):
+    """``x`` with only its splits of the tensor dims ``dims`` kept: every
+    other mesh dim replicated (an all-gather), a pending sum reduced (an
+    all-reduce). The layout a kernel that splits only ``dims`` needs."""
+    from torch.distributed.tensor import Replicate, Shard
+    return redistribute(x, [pl if type(pl) is Shard and pl.dim in dims
+                            else Replicate() for pl in x.placements])
+
+
+def einsum(eq: str, a, b):
+    """``torch.einsum(eq, a, b)`` of two operands. On DTensors each
+    process computes its own block (``local_map``), with the layout chosen
+    here, not by DTensor's einsum (whose reshapes of split dims fail on
+    some releases): on each mesh dim the letter ``a`` splits is kept (else
+    the one ``b`` splits), the other operand split on it where it has it
+    and whole where not (an all-gather: fsdp's weight gather); a letter
+    split on both inputs and absent from the output leaves a pending sum.
+    An operand left whole on a mesh dim that splits the work has a pending
+    sum for its gradient."""
+    import torch
+    if not (is_dtensor(a) or is_dtensor(b)):
+        return torch.einsum(eq, a, b)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (a if is_dtensor(a) else b).device_mesh
+    a, b = as_dtensor(a, mesh), as_dtensor(b, mesh)
+    ins, out = eq.replace(" ", "").split("->")
+    la, lb = ins.split(",")
+
+    def letter(pl, labels):
+        return labels[pl.dim] if type(pl) is Shard else None
+
+    R = Replicate()
+    pa, pb, po, ga, gb = [], [], [], [], []
+    for pl_a, pl_b in zip(a.placements, b.placements):
+        keep = letter(pl_a, la) or letter(pl_b, lb)
+        if keep and keep not in out and not (keep in la and keep in lb):
+            keep = None         # summed within one operand: gathered
+        if keep is None:
+            for placed in (pa, pb, po, ga, gb):
+                placed.append(R)
+            continue
+        pa.append(Shard(la.index(keep)) if keep in la else R)
+        pb.append(Shard(lb.index(keep)) if keep in lb else R)
+        po.append(Shard(out.index(keep)) if keep in out else Partial())
+        ga.append(pa[-1] if keep in la else Partial())
+        gb.append(pb[-1] if keep in lb else Partial())
+    return local_map(lambda x, y: torch.einsum(eq, x, y),
+                     out_placements=po, in_placements=(pa, pb),
+                     in_grad_placements=(ga, gb), device_mesh=mesh)(
+        redistribute(a, pa), redistribute(b, pb))
+
+
+def linear(x, w):
+    """``x @ w`` for a 2-D ``w``: ``einsum`` on DTensors."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    lead = "abcdefgh"[:x.dim() - 1]
+    return einsum(f"{lead}y,yz->{lead}z", x, w)
+
+
+def constrain(x, rules: Optional[Rules], *names: Optional[str]):
+    """Sharding-constrain an activation by logical dim names, the
+    counterpart of ``with_sharding_constraint``: a DTensor on the mesh in
+    use is redistributed to the placements that ``rules`` (``None``: the
+    rules in use, ``use_rules``) resolve for ``names`` and its shape. A
+    plain tensor, or no mesh or rules in use, passes through as it is."""
     mesh = get_mesh()
-    if mesh is None or mesh.empty:
+    rules = rules_in_use() if rules is None else rules
+    if mesh is None or mesh.empty or rules is None or not is_dtensor(x):
         return x
     spec = resolve(rules, tuple(names), tuple(x.shape), mesh)
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"tensor parallelism over 'model' (size {mesh.shape['model']}; "
-            f"activation {names} -> {spec}) is not in the port yet: the "
-            f"port runs a model axis of size 1")
-    return x
+    return redistribute(x, placements(spec, mesh))

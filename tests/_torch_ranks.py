@@ -243,8 +243,83 @@ def layout(make_mesh, rank, inputs):
                for spec in inputs["specs"]}}
 
 
+def constrain(make_mesh, rank, inputs):
+    """``constrain`` on a (data 1, model 2) mesh: the placements and this
+    rank's shard of a replicated 4 x 8 DTensor constrained to
+    (act_batch, act_ff), then of that one constrained back to
+    (act_batch, None)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import make_mesh as live_mesh
+    from repro_torch.parallel.sharding import FSDP_RULES, constrain, use_mesh
+    mesh = live_mesh((1, 2), ("data", "model"), "cpu")
+    x = DTensor.from_local(torch.arange(32.0).reshape(4, 8),
+                           mesh.device_mesh, [Replicate(), Replicate()])
+    with use_mesh(mesh):
+        y = constrain(x, FSDP_RULES, "act_batch", "act_ff")
+        z = constrain(y, FSDP_RULES, "act_batch", None)
+    return {"y": (y.placements, y.to_local().clone()),
+            "z": (z.placements, z.to_local().clone())}
+
+
+def tp(make_mesh, rank, inputs):
+    """Each case of ``inputs["cases"]`` (config, mesh shape over (data,
+    model), preset) on the port's steps over DTensor-placed trees: one
+    train step (metrics, the updated params and first moments gathered,
+    each param's local shard shape and pspec), a prefill and the decode
+    steps of the given tokens (logits gathered)."""
+    from repro_torch import _tree
+    from repro_torch.configs.base import RunConfig, ShapeProfile
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.mesh import make_mesh as live_mesh
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.parallel.sharding import distribute_tree, use_mesh
+    S, B = inputs["S"], inputs["B"]
+    out = {}
+    for cfg, shape, preset in inputs["cases"]:
+        mesh = live_mesh(shape, ("data", "model"), "cpu")
+        params = inputs["params"][cfg.name]
+        m = Model(RunConfig(model=cfg, shape=ShapeProfile("t", S, B, "train"),
+                            sharding_preset=preset))
+        batch = SyntheticLMData(cfg, m.run.shape).batch(0)
+        dp = distribute_tree(params, m.param_shardings(mesh))
+        with use_mesh(mesh):
+            p2, o2, met = m.train_step(
+                dp, distribute_tree(m.opt_init(params), m.opt_shardings(mesh)),
+                distribute_tree(batch, m.batch_shardings(mesh)))
+        rec = {"metrics": {k: float(v) for k, v in met.items()},
+               "params": [t.full_tensor() for t in _tree.tree_leaves(p2)],
+               # AdamW's first moment after one step: 0.1 x each clipped
+               # gradient leaf, laid out as its parameter
+               "mu": [t.full_tensor() for t in _tree.tree_leaves(o2["mu"])],
+               # (global shape, local shape, pspec) of every param leaf
+               "shards": _tree.tree_leaves(_tree.tree_map(
+                   lambda t, sh: (tuple(t.shape), tuple(t.to_local().shape),
+                                  sh.spec), dp, m.param_shardings(mesh)),
+                   is_leaf=lambda x: isinstance(x, tuple)),
+               "placements_kept": all(
+                   a.placements == b.placements for a, b in zip(
+                       _tree.tree_leaves(p2), _tree.tree_leaves(dp)))}
+        d = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B,
+                                                          "decode"),
+                            sharding_preset=preset))
+        pb = {k: v for k, v in batch.items() if k != "labels"}
+        pb["tokens"] = pb["tokens"][:, :S // 2]
+        sh = d.batch_shardings(mesh)
+        with use_mesh(mesh):
+            logits, cache = d.prefill(
+                dp, distribute_tree(pb, {k: sh[k] for k in pb}),
+                distribute_tree(d.init_cache(), d.cache_shardings(mesh)))
+            rec["logits"] = [logits.full_tensor()]
+            for tok in inputs["tokens"][cfg.name]:
+                logits, cache = d.decode_step(
+                    dp, distribute_tree(tok, d.token_sharding(mesh)), cache)
+                rec["logits"].append(logits.full_tensor())
+        out[(cfg.name, tuple(shape), preset)] = rec
+    return out
+
+
 SCENARIOS = {f.__name__: f for f in (grad_compress, pipeline, moe,
-                                     checkpoint, layout)}
+                                     checkpoint, layout, constrain, tp)}
 
 
 def _main(scenario, rank, world, workdir):

@@ -120,18 +120,19 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing(monkeypatch):
 
 def test_cuda_tensors_go_to_the_kernel(monkeypatch):
     """A CUDA tensor never takes the plain version: it launches the
-    kernel, or the kernel's error propagates."""
+    kernel (the custom op ``_launch``, whose CUDA body is
+    ``kernel.flash_attention_fwd``), or the kernel's error propagates."""
     class CudaLike:
         is_cuda = True
         shape = (1, 4, 2, 8)
 
     calls = []
 
-    def fake(q, k, v, *, scale, causal, kv_len):
+    def fake(q, k, v, scale, causal, kv_len):
         calls.append((scale, causal, kv_len))
         raise RuntimeError("launch refused")
 
-    monkeypatch.setattr(kernel, "flash_attention_fwd", fake)
+    monkeypatch.setattr(ops, "_launch", fake)
     with pytest.raises(RuntimeError, match="launch refused"):
         ops.flash_attention(CudaLike(), CudaLike(), CudaLike(), scale=0.5)
     assert calls == [(0.5, True, None)]

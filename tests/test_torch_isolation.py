@@ -20,8 +20,9 @@ assert {"repro_torch.models.moe", "repro_torch.analysis.sanitizer",
         "repro_torch.cloud.simfabric", "repro_torch.tools.emlint",
         "repro_torch.tools.emcheck", "repro_torch.tools.emtop",
         "repro_torch.parallel.sharding", "repro_torch.parallel.pipeline",
-        "repro_torch.optim.grad_compress", "repro_torch.launch.mesh"
-        } <= set(names), \
+        "repro_torch.optim.grad_compress", "repro_torch.launch.mesh",
+        "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+        "repro_torch.launch.comm_analysis"} <= set(names), \
     names
 for n in names:
     importlib.import_module(n)

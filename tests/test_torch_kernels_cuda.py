@@ -332,3 +332,86 @@ def test_selective_scan_backward_matches_cpu(Bt, L, di, N, dtype):
     assert sk.launches == before + 1
     host = _grads(fn, args, cot, "cpu", dts)
     _assert_grads_close(card, host, TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# The launches as custom ops: fake shapes and FLOPs (the dry run's path)
+# ---------------------------------------------------------------------------
+
+def _visible_pairs(Sq, kv_len, causal):
+    """(q, k) pairs counted one by one: query ``i`` sees keys ``<
+    kv_len`` and, causal, ``<= i``."""
+    return sum(1 for i in range(Sq) for j in range(kv_len)
+               if not causal or j <= i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Skv,H,KV,dq,dv,causal,kv_len", [
+    (2, 2048, 2048, 16, 2, 64, 64, True, None),
+    (1, 300, 300, 8, 8, 96, 64, True, 257),
+    (2, 384, 512, 16, 16, 64, 64, False, None),
+    (2, 463, 463, 128, 128, 192, 128, True, None),
+])
+def test_flash_attention_op_is_fake_and_counts_its_flops(B, Sq, Skv, H, KV,
+                                                         dq, dv, causal,
+                                                         kv_len):
+    """On fake CUDA tensors the launch is the custom op's fake: the
+    output's shape and dtype, no launch; FlopCounterMode counts the
+    registered formula, the two products (2 x (dq + dv) per visible
+    pair) counted here by hand."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    _card()
+    before = kernel.launches
+    with FakeTensorMode():
+        q = torch.empty(B, Sq, H, dq, device="cuda", dtype=torch.bfloat16)
+        k = torch.empty(B, Skv, KV, dq, device="cuda", dtype=torch.bfloat16)
+        v = torch.empty(B, Skv, KV, dv, device="cuda", dtype=torch.bfloat16)
+        with FlopCounterMode(display=False) as fc:
+            o = ops.flash_attention(q, k, v, scale=0.1, causal=causal,
+                                    kv_len=kv_len)
+    assert tuple(o.shape) == (B, Sq, H, dv) and o.dtype == torch.bfloat16
+    assert kernel.launches == before
+    pairs = _visible_pairs(Sq, Skv if kv_len is None else kv_len, causal)
+    assert fc.get_total_flops() == B * H * pairs * 2 * (dq + dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bt,L,di,N", [(2, 1024, 8192, 16),
+                                       (4, 384, 8192, 16)])
+def test_selective_scan_op_is_fake_and_counts_its_flops(Bt, L, di, N):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.mamba_scan import kernel as skernel
+    from repro_torch.kernels.mamba_scan import ops as sops
+    _card()
+    before = skernel.launches
+    with FakeTensorMode():
+        f = lambda *s, dt=torch.float32: torch.empty(*s, device="cuda",
+                                                     dtype=dt)
+        x = f(Bt, L, di, dt=torch.bfloat16)
+        args = (x, f(Bt, L, di), f(di, N), f(Bt, L, N, dt=torch.bfloat16),
+                f(Bt, L, N, dt=torch.bfloat16), f(di), f(Bt, di, N))
+        with FlopCounterMode(display=False) as fc:
+            y, h = sops.selective_scan(*args)
+    assert tuple(y.shape) == (Bt, L, di) and y.dtype == torch.bfloat16
+    assert tuple(h.shape) == (Bt, di, N) and h.dtype == torch.float32
+    assert skernel.launches == before
+    # four f32 operations per (row, step, channel, state) element
+    assert fc.get_total_flops() == 4 * Bt * L * di * N
+
+
+@pytest.mark.cuda
+def test_kernel_ops_launch_on_real_cuda_tensors():
+    """On real CUDA tensors the custom op launches the kernel once."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16,
+                    generator=g)
+    before = kernel.launches
+    o = ops.flash_attention(q, q[:, :, :2], q[:, :, :2], scale=0.125)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = ref.attention_ref(q.float(), q[:, :, :2].float(),
+                             q[:, :, :2].float(), scale=0.125, causal=True)
+    assert float((o.float() - want).abs().max()) < TOL[torch.bfloat16]

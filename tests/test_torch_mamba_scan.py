@@ -166,7 +166,8 @@ def test_cpu_dispatch_takes_plain_version_and_launches_nothing(monkeypatch):
 
 def test_cuda_tensors_go_to_the_kernel(monkeypatch):
     """A CUDA tensor never takes the plain version: it launches the
-    kernel, or the kernel's error propagates."""
+    kernel (the custom op ``_launch``, whose CUDA body is
+    ``kernel.selective_scan_fwd``), or the kernel's error propagates."""
     class CudaLike:
         is_cuda = True
 
@@ -176,7 +177,7 @@ def test_cuda_tensors_go_to_the_kernel(monkeypatch):
         calls.append(len(args))
         raise RuntimeError("launch refused")
 
-    monkeypatch.setattr(kernel, "selective_scan_fwd", fake)
+    monkeypatch.setattr(ops, "_launch", fake)
     with pytest.raises(RuntimeError, match="launch refused"):
         ops.selective_scan(*[CudaLike()] * 7, chunk=8, scan_dtype="bfloat16")
     assert calls == [7]

@@ -277,15 +277,31 @@ def test_placements_nest_shards_in_mesh_order():
         (Replicate(), _StridedShard(0, split_factor=2), Shard(0))
 
 
-def test_constrain_is_a_noop_on_model_one_and_refuses_tensor_parallelism():
+def test_constrain_is_a_noop_on_model_one_and_refuses_tensor_parallelism(
+        tmp_path):
+    """A plain tensor passes through, with or without a mesh (a model
+    axis above 1 is no longer refused); a DTensor on a (data 1, model 2)
+    mesh of 2 gloo processes is redistributed to the placements the rules
+    resolve: (act_batch, act_ff) splits its rows over data (size 1) and
+    its columns over model, each process keeping its half, and
+    (act_batch, None) gathers the columns back."""
+    from torch.distributed.tensor import Replicate, Shard
+    from tests._torch_ranks import run_ranks
     x = torch.ones(4, 8)
     assert S.constrain(x, FSDP_RULES, "act_batch", "act_ff") is x
     with S.use_mesh(Mesh({"pod": 2, "data": 2, "model": 1})):
         assert S.constrain(x, FSDP_RULES, "act_batch", "act_ff") is x
     with S.use_mesh(Mesh({"data": 2, "model": 2})):
-        with pytest.raises(NotImplementedError, match="tensor parallelism"):
-            S.constrain(x, FSDP_RULES, "act_batch", "act_ff")
+        assert S.constrain(x, FSDP_RULES, "act_batch", "act_ff") is x
     assert S.get_mesh() is None
+    full = torch.arange(32.0).reshape(4, 8)
+    for r, out in enumerate(run_ranks("constrain", 2, tmp_path)):
+        pl, local = out["y"]
+        assert tuple(pl) == (Shard(0), Shard(1))
+        assert torch.equal(local, full[:, 4 * r:4 * r + 4])
+        pl, local = out["z"]
+        assert tuple(pl) == (Shard(0), Replicate())
+        assert torch.equal(local, full)
 
 
 def test_host_mesh_shardings_place_a_tree():
