@@ -137,6 +137,26 @@ each phase's wall time printed:
      the reference's ``main()`` prints it and its record; a cell not
      ``ok``, or a train or prefill cell whose kernel FLOPs read 0, fails
      the run;
+  18. (run after phase 17, before phase 13) the cross-pod steps on a
+     model axis, the MoE dispatches on DTensors and the examples. 18a:
+     four ``chip_smoke.py --rank18`` processes over gloo on cuda:0 on
+     (pod 2, data 1, model 2), each pod's params and AdamW f32 state
+     DTensors on its (data 1, model 2) sub-mesh: full-width
+     tinyllama-1.1b at 4 of 22 layers (2 x 2048 split over pod) through
+     ``multipod_train_step`` (none, bf16, int8) and
+     ``pipeline_train_step`` (n_micro 2), flash on each process's 16 of 32
+     heads; falcon-mamba-7b at 2 of 64 layers through the none step, the
+     scan on each process's 4096 of 8192 channels. 18b: the same
+     processes on (data 2, model 2), fsdp: qwen2-moe-a2.7b at full width,
+     2 of 24 layers (2 x 1024), one train step with each MoE dispatch
+     (sort, manual_ep, gshard). Each run against the plain step on cuda:0
+     in this process (loss, grad_norm, params within one AdamW step's
+     reach; int8's sync handing only int8 shards and f32 scales to the
+     all-gather; manual_ep's all-to-alls), with s/step, peak GB per
+     process and collective bytes. 18c, beside them in their own
+     processes: every ``examples/torch_*.py`` on the card at small flags
+     (the train example resumed from its checkpoint), each exiting 0 with
+     its final line;
   15. (run after phase 13) the explorer's dispatch seam driving the real
      runtime on the card: one EmeraldRuntime (cloud tier on the card,
      ``max_workers=2``) takes three tenants' adjoint-tomography
@@ -212,6 +232,9 @@ TRAIN_STEPS = 3         # a warm-up, a timed step, a timed profiled step
 # not scale; PERF.md §5):
 # falcon-mamba-7b train 8 -> 4 layers (phase 8b, 42.5 s), qwen2-moe-a2.7b
 # serve 24 -> 8 (10b, 32.6 s), minicpm3-4b train 16 -> 8 (11c, 31.6 s).
+# Phase 18 runs cut paths from the start (P18_LAYERS): tinyllama-1.1b at 4
+# of 22 layers (the GPipe stages need an even depth), falcon-mamba-7b at 2
+# of 64, qwen2-moe-a2.7b at 2 of 24, four processes sharing the card.
 MAMBA_TRAIN_LAYERS = 4  # of 64: the whole 7.3 B model with AdamW f32 state
 #                         needs ~87 GB for params, grads and state
 FRAMING_MAX = 64 * 1024  # bytes beside the batch a later step may ship up
@@ -1723,6 +1746,15 @@ def train_launches(cfg, grad_accum=1):
             "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"]}
 
 
+def pipeline_launches(cfg, n_micro, n_stages):
+    """Launches of one GPipe step on one stage's process: each of its
+    n_micro + n_stages - 1 ticks runs the stage's layers, forward and (remat
+    "full") again in the backward."""
+    per = zoo_launches(cfg)
+    ticks = n_micro + n_stages - 1
+    return {k: 2 * ticks * v // n_stages for k, v in per.items()}
+
+
 def phase_kernels_zoo(fa_cases, ss_cases):
     """Flash attention at every call of the zoo's serve and train paths
     (MLA's dq != dv, up to 192; non-causal encoders and cross-attention
@@ -1748,7 +1780,9 @@ def phase_kernels_zoo(fa_cases, ss_cases):
                   + json.dumps(r), flush=True)
     ss_recs = {}
     for name, (Bt, L, di, N, r, dt) in ss_cases:
-        rec = ss_case(Bt, L, di, N, dt, proj_width=r + 2 * N, timed=True)
+        # r None: B and C contiguous, not slices of the x_proj output
+        rec = ss_case(Bt, L, di, N, dt, timed=True,
+                      proj_width=None if r is None else r + 2 * N)
         rec["path"] = name
         ss_recs[name] = rec
         print(f"  selective_scan_fwd ({name}) " + json.dumps(rec), flush=True)
@@ -1938,6 +1972,25 @@ def zoo_plan():
         if zcfg.family == "hybrid":
             ss_zoo.append((path, (B, S, zcfg.d_inner, zcfg.ssm_state,
                                   zcfg.dt_rank_, zcfg.dtype)))
+    # phase 18's local shards: each pod's rows, the heads or channels of
+    # one of the two processes over model (tinyllama's q heads 16 of 32,
+    # the kv heads they read 2 of 4; qwen2-moe's one row of data 2, heads
+    # 8 of 16; falcon-mamba's channels 4096 of 8192, whose B and C the
+    # all-reduce over model leaves contiguous)
+    B18 = P18_BATCH // P18_MESH[0]
+    for arch, n_model in (("tinyllama-1.1b", P18_MESH[2]),
+                          ("qwen2-moe-a2.7b", P18_MOE_MESH[1])):
+        zcfg, zrun = p18_run(arch)
+        rows = B18 if arch.startswith("tiny") else \
+            P18_BATCH // P18_MOE_MESH[0]
+        fa_zoo.append((f"18 local shard {arch}", dict(
+            B=rows, S=zrun.shape.seq_len, H=zcfg.n_heads // n_model,
+            KV=max(zcfg.kv_heads // n_model, 1), dq=zcfg.hdim,
+            dv=zcfg.hdim, dtype_name=zcfg.dtype, causal=True), ()))
+    zcfg, zrun = p18_run("falcon-mamba-7b")
+    ss_zoo.append(("18 local shard falcon-mamba-7b", (
+        B18, zrun.shape.seq_len, zcfg.d_inner // P18_MESH[2],
+        zcfg.ssm_state, None, zcfg.dtype)))
     return {"serve": zoo_serve, "encdec": (ecfg, erun, e_prompt),
             "train": zoo_train, "fa_cases": fa_zoo, "ss_cases": ss_zoo}
 
@@ -2050,13 +2103,32 @@ def int8_wire_ok(byte_counts, params):
                         "all_gather/float32": 4 * len(leaves)}
 
 
+def grad_leaf_rel(mu, plain_mu):
+    """Each gradient leaf against the plain step's, read as AdamW's first
+    moments (0.1 x the clipped gradient): ``mu`` a tree (DTensor leaves
+    gathered one at a time), ``plain_mu`` the plain step's leaves on the
+    host. The largest rel norm of the difference, its leaf, the median."""
+    from repro_torch._tree import tree_leaves
+    rel = []
+    for t, w in zip(tree_leaves(mu), plain_mu, strict=True):
+        w = w.cuda()
+        rel.append(float((full(t) - w).norm() / w.norm()))
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    return {"grad_leaf_rel_max": rel[worst], "grad_leaf_rel_worst": worst,
+            "grad_leaf_rel_median": sorted(rel)[len(rel) // 2]}
+
+
 def multidevice_run(label, path, step, args, plain, plain_params, want,
-                    gn_rtol, body="tma", gather=None):
+                    gn_rtol, body="tma", gather=None, mu_of=None,
+                    plain_mu=None):
     """One multi-device step on the main path ``path``: its wall time,
     peak device bytes, kernel launches (``want``, flash on ``body``) and
     the shape keys they had, the bytes handed to collectives, and its
     distance to the plain step: grad_norm within rel ``gn_rtol``, params
-    within one AdamW step's reach."""
+    within one AdamW step's reach (unless ``plain_params`` is None), and,
+    given the plain step's first moments ``plain_mu``, each gradient leaf
+    (``mu_of`` of the new optimizer state) within rel
+    TP_GRAD_LEAF_RTOL."""
     import torch
     from repro_torch.parallel import _collectives as coll
     torch.cuda.synchronize()
@@ -2072,10 +2144,13 @@ def multidevice_run(label, path, step, args, plain, plain_params, want,
         wall = time.perf_counter() - t0
     finally:
         _PATH[0] = None
-    del opt2
     launches, by_body = read_counters()
     counts = coll.counts()
     peak = torch.cuda.max_memory_allocated()
+    # after the step's counts: the leaves' gathers are not the step's
+    grad_rel = None if plain_mu is None else grad_leaf_rel(
+        mu_of(opt2), plain_mu)
+    del opt2
     if gather is not None:
         p2 = gather(p2)
     m = {k: float(v) for k, v in m.items()}
@@ -2086,9 +2161,11 @@ def multidevice_run(label, path, step, args, plain, plain_params, want,
            "loss_rel": abs(m["loss"] - plain["loss"]) / abs(plain["loss"]),
            "grad_norm_rel": abs(m["grad_norm"] - plain["grad_norm"])
            / plain["grad_norm"],
-           "max_param_diff": max_leaf_diff(p2, plain_params),
-           "param_diff_over_adamw_bound": adamw_first_step_ratio(
-               p2, plain_params, plain["lr"]),
+           "max_param_diff": None if plain_params is None
+           else max_leaf_diff(p2, plain_params),
+           "param_diff_over_adamw_bound": None if plain_params is None
+           else adamw_first_step_ratio(p2, plain_params, plain["lr"]),
+           **({} if grad_rel is None else grad_rel),
            "launches": launches, "flash_launches_by_body": by_body,
            "shape_keys": sorted(list(k) for k in FA_SEEN),
            "collective_bytes": counts["bytes"],
@@ -2102,10 +2179,19 @@ def multidevice_run(label, path, step, args, plain, plain_params, want,
     check(rec["grad_norm_rel"] <= gn_rtol,
           f"{label}: grad_norm within rel {gn_rtol:.3e} of the plain "
           f"step's ({rec['grad_norm_rel']:.3e})")
-    check(rec["param_diff_over_adamw_bound"] <= 1.0,
-          f"{label}: params within one AdamW step's reach of the plain "
-          f"step's (max diff {rec['max_param_diff']:.3e}, "
-          f"{rec['param_diff_over_adamw_bound']:.4f} of 2 lr + rounding)")
+    if grad_rel is not None:
+        check(rec["grad_leaf_rel_max"] <= TP_GRAD_LEAF_RTOL,
+              f"{label}: every gradient leaf within rel "
+              f"{TP_GRAD_LEAF_RTOL} of the plain step's (largest "
+              f"{rec['grad_leaf_rel_max']:.3e}, leaf "
+              f"{rec['grad_leaf_rel_worst']}; median "
+              f"{rec['grad_leaf_rel_median']:.3e})")
+    if plain_params is not None:
+        check(rec["param_diff_over_adamw_bound"] <= 1.0,
+              f"{label}: params within one AdamW step's reach of the plain "
+              f"step's (max diff {rec['max_param_diff']:.3e}, "
+              f"{rec['param_diff_over_adamw_bound']:.4f} of 2 lr + "
+              f"rounding)")
     del p2
     return rec
 
@@ -2534,14 +2620,7 @@ def rank_17a(rank, world, workdir):
             counts = coll.counts()
             m = {k: float(v) for k, v in m.items()}
             p2 = [t.full_tensor() for t in tree_leaves(p2)]
-            # each gradient leaf, as AdamW's first moment, against the
-            # plain step's: rel norm of the difference
-            grad_rel = []
-            for t, w in zip(tree_leaves(opt["mu"]), plain["mu"]):
-                w = w.cuda()
-                grad_rel.append(float((t.full_tensor() - w).norm()
-                                      / w.norm()))
-            worst = max(range(len(grad_rel)), key=grad_rel.__getitem__)
+            grad_rel = grad_leaf_rel(opt["mu"], plain["mu"])
             del opt, dp, db
             ratio = adamw_first_step_ratio(p2, plain["params"],
                                            plain["metrics"]["lr"])
@@ -2556,11 +2635,7 @@ def rank_17a(rank, world, workdir):
                    "grad_norm_rel": abs(m["grad_norm"]
                                         - plain["metrics"]["grad_norm"])
                    / plain["metrics"]["grad_norm"],
-                   "grad_leaf_rel_max": grad_rel[worst],
-                   "grad_leaf_rel_worst": worst,
-                   "grad_leaf_rel_median": sorted(grad_rel)[len(grad_rel)
-                                                           // 2],
-                   "param_diff_over_adamw_bound": ratio,
+                   **grad_rel, "param_diff_over_adamw_bound": ratio,
                    "logits_rel_err": rel, "argmax_agree": agree,
                    "launches": {k: train_launches[k] + serve_launches[k]
                                 for k in train_launches},
@@ -2775,6 +2850,419 @@ def phase_dryrun():
     return recs
 
 
+# ------------------------------- 18: cross-pod steps on a model axis, MoE
+# 18a: full-width tinyllama-1.1b at 4 of 22 layers (the GPipe stages take
+# 2 each) and falcon-mamba-7b at 2 of 64, bf16, AdamW f32, batch 2 x 2048
+# split over pod, on (pod 2, data 1, model 2): four gloo processes on
+# cuda:0, each pod's params and AdamW state DTensors on its (data 1,
+# model 2) sub-mesh. 18b: full-width qwen2-moe-a2.7b at 2 of 24 layers,
+# 2 x 1024, on (data 2, model 2), fsdp, once per MoE dispatch. Each run is
+# held against the plain step on cuda:0 in this process:
+#   * loss within rel 1e-3 (16a's bound, as a relative one), the
+#     pipeline's xent within 2e-3 (tests/test_pipeline.py), 18b's loss
+#     within rel 2e-3 (17a's);
+#   * grad_norm: none within 16a's 1e-4, bf16 2^-7 and int8 1e-2 as 16a
+#     (the wire formats' rounding); the pipeline within 5e-4, about 3x
+#     its reading, not 16a's 1e-4: with a model axis each split product
+#     sums its halves in bf16, and the pipelined step, whose microbatches
+#     and pod sums add in another order again, read 1.606e-4 (none
+#     5.233e-5; NVIDIA H100 80GB HBM3, 700.00 W), where 16a's world-1
+#     steps were bitwise; 18b at 17a's bound (readings <= 3.442e-4);
+#   * 18a: each gradient leaf, read as AdamW's first moment, within 17a's
+#     TP_GRAD_LEAF_RTOL of the plain step's (the global norm cannot see
+#     a small leaf, such as a norm scale, that missed its pod sum); for
+#     int8, whose rounding alone can move a heavy-tailed leaf past that,
+#     each synced leaf within half the pods' mean scale of the exact
+#     mean of the pods' gradients, element by element;
+#   * params within one AdamW step's reach (18a; 18b's plain params are
+#     not kept: 3.5 GB on the host);
+#   * int8's sync hands the all-gather only the int8 shards and one f32
+#     scale per leaf (bytes counted around ``sync_grads``, apart from the
+#     all-gathers DTensor issues for tensor parallelism);
+#   * manual_ep's experts exchanged by all_to_all.
+P18_MESH, P18_MOE_MESH = (2, 1, 2), (2, 2)
+P18_SEQ, P18_BATCH, P18_MOE_SEQ = 2048, 2, 1024
+P18_LAYERS = {"tinyllama-1.1b": 4, "falcon-mamba-7b": 2,
+              "qwen2-moe-a2.7b": 2}
+P18_N_MICRO = 2
+P18_LOSS_RTOL = 1e-3
+P18_GN_RTOL = {"none": GN_RTOL["none"], "bf16": GN_RTOL["bf16"],
+               "int8": GN_RTOL["int8"], "pipeline": 5e-4,
+               "moe": TP_GNORM_RTOL}
+P18_MOE_IMPLS = ("sort", "manual_ep", "gshard")
+P18_TIMEOUT = 600       # seconds for 18a-b's four processes
+# 18c: each port example on the card at small flags (the train example
+# checkpoints every 2 steps and resumes from its last checkpoint): the
+# line its output must end with
+P18_EXAMPLES = (
+    ("torch_quickstart", [], "modeled transfer seconds:"),
+    ("torch_wide_dag", [], "  t="),
+    ("torch_fabric_quickstart", [], "workers active="),
+    ("torch_adjoint_tomography", ["--iters", "2", "--nx", "32", "--nt",
+                                  "60"], "offloads:"),
+    ("torch_multi_tenant", ["--at-iters", "2", "--lm-requests", "2",
+                            "--nx", "32"], "per-LM-run namespaces moved"),
+    ("torch_serve_lm", ["--requests", "4"], "transfers:"),
+    ("torch_train_lm", ["--steps", "4", "--ckpt-every", "2"],
+     "transfer report:"),
+    ("torch_train_lm", ["--steps", "2", "--ckpt-every", "2", "--resume"],
+     "transfer report:"))
+P18_EXAMPLE_LANES = 3   # processes at a time; the train runs share one
+P18_EXAMPLE_TIMEOUT = 300
+
+
+def p18_run(arch):
+    """(config, RunConfig) of phase 18's run of ``arch``."""
+    if arch == "qwen2-moe-a2.7b":
+        return train_run(arch, P18_MOE_SEQ, P18_BATCH,
+                         n_layers=P18_LAYERS[arch])
+    return train_run(arch, P18_SEQ, P18_BATCH, n_layers=P18_LAYERS[arch])
+
+
+def p18_inputs(model):
+    """Params drawn on the card from seed 0 and the batch (seed 0)."""
+    import torch
+    from repro_torch._tree import to_device
+    from repro_torch.data.pipeline import SyntheticLMData
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               device="cuda")
+    batch = to_device(SyntheticLMData(model.cfg, model.run.shape, seed=0)
+                      .batch(0), "cuda")
+    return params, batch
+
+
+def full_tree(tree):
+    from repro_torch._tree import tree_map
+    return tree_map(full, tree)
+
+
+def int8_rounding_ratio(grads, synced, axis, mesh):
+    """The int8 sync's distance to the exact mean over ``axis`` of the
+    gradients' local shards, leaf by leaf, over the format's bound: each
+    element within half the mean of the shards' scales, plus the rounding
+    of the mean to the gradient's dtype (and f32 noise). Its own
+    collectives are left out of the counts."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.optim.grad_compress import quantize_int8
+    from repro_torch.parallel import _collectives as coll
+    counts = (coll.BYTES.copy(), coll.CALLS.copy())
+    n = mesh.axis_size(axis)
+    worst = 0.0
+    for g, out in zip(tree_leaves(grads), tree_leaves(synced), strict=True):
+        g, out = (t.to_local() if hasattr(t, "to_local") else t
+                  for t in (g, out))
+        exact = coll.psum(g.float(), axis, mesh) / n
+        scale = coll.psum(quantize_int8(g)[1], axis, mesh) / n
+        out = out.float()
+        bound = scale / 2 * (1 + 1e-5) + 1e-6 * exact.abs().max() \
+            + torch.finfo(g.dtype).eps / 2 * torch.maximum(out.abs(),
+                                                          exact.abs())
+        worst = max(worst, float(((out - exact).abs() / bound).max()))
+    for c, saved in zip((coll.BYTES, coll.CALLS), counts):
+        c.clear()
+        c.update(saved)
+    return worst
+
+
+def rank_18(rank, world, workdir):
+    """One of phase 18a-b's four processes (``chip_smoke.py --rank18 R W
+    DIR``): the multipod steps (none, bf16, int8) and the GPipe step of
+    tinyllama and the multipod none step of falcon-mamba on (pod 2, data
+    1, model 2), then qwen2-moe's train step with each MoE dispatch on
+    (data 2, model 2); writes its records and the shape keys it
+    launched."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import Model
+    from repro_torch.optim import grad_compress as gcm
+    from repro_torch.parallel import _collectives as coll
+    from repro_torch.parallel.pipeline import (gather_stages,
+                                               pipeline_train_step,
+                                               split_stages)
+    from repro_torch.parallel.sharding import distribute_tree, use_mesh
+    sys.stdout = open(os.path.join(workdir, f"rank{rank}.out"), "w",
+                      buffering=1)
+    sys.stderr = sys.stdout
+    torch.cuda.set_device(0)
+    for mod in kernel_counters().values():
+        mod.build()
+    watch_launch_shapes()
+    # what each sync over pod handed to the collectives, apart from the
+    # all-gathers DTensor issues for the tensor-parallel step around it,
+    # and what it took and gave (held once the timed step is over)
+    sync, synced, last_sync = gcm.sync_grads, {}, []
+
+    def counted(grads, axis, method, mesh=None):
+        before = dict(coll.BYTES)
+        out = sync(grads, axis, method, mesh)
+        synced.clear()
+        synced.update({f"{op}/{dt}": n - before.get((op, dt), 0)
+                       for (op, dt), n in coll.BYTES.items()
+                       if n != before.get((op, dt), 0)})
+        last_sync[:] = [grads, out, axis, mesh]
+        return out
+    gcm.sync_grads = counted
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=P18_TIMEOUT))
+    out = {"records": []}
+    try:
+        plain = torch.load(os.path.join(workdir, "plain18.pt"),
+                           map_location="cpu", weights_only=False,
+                           mmap=True)
+        mesh = make_mesh(P18_MESH, ("pod", "data", "model"), "cuda")
+        sub = mesh.without("pod")
+        n_pods = P18_MESH[0]
+        for arch in ("tinyllama-1.1b", "falcon-mamba-7b"):
+            cfg, run = p18_run(arch)
+            model = Model(run)
+            params, batch = p18_inputs(model)
+            # every process drew the same params: each takes its shards
+            dp = distribute_tree(params, model.param_shardings(sub), None)
+            opt = model.opt_init(dp)        # shard by shard
+            n_local = sum(t.to_local().numel() for t in tree_leaves(dp))
+            n_leaves = len(tree_leaves(dp))
+            del params
+            ref = plain[arch]
+            methods = ("none", "bf16", "int8") if arch.startswith("tiny") \
+                else ("none",)
+            for method in methods:
+                rec = multidevice_run(
+                    f"18a multipod {method} {arch}",
+                    f"18a multipod {method} {arch}",
+                    gcm.multipod_train_step(model, mesh, method),
+                    (dp, opt, batch), ref["metrics"], ref["params"],
+                    train_launches(cfg), P18_GN_RTOL[method],
+                    gather=full_tree, mu_of=lambda o: o["mu"],
+                    plain_mu=None if method == "int8" else ref["mu"])
+                rec["sync_bytes"] = dict(synced)
+                rec["int8_wire_ok"] = synced == {
+                    "all_gather/int8": n_local,
+                    "all_gather/float32": 4 * n_leaves}
+                if method == "int8":
+                    # how far each synced leaf lies from the exact f32
+                    # mean of the pods' gradients, over its bound
+                    rec["int8_rounding_ratio"] = int8_rounding_ratio(
+                        *last_sync)
+                last_sync.clear()
+                out["records"].append(rec)
+            if arch.startswith("tiny"):
+                rec = multidevice_run(
+                    f"18a pipeline n_micro={P18_N_MICRO} {arch}",
+                    f"18a pipeline {arch}",
+                    pipeline_train_step(model, mesh, P18_N_MICRO),
+                    (split_stages(dp, mesh), split_stages(opt, mesh), batch),
+                    ref["metrics"], ref["params"],
+                    pipeline_launches(cfg, P18_N_MICRO, n_pods),
+                    P18_GN_RTOL["pipeline"],
+                    gather=lambda p: full_tree(gather_stages(p, mesh)),
+                    mu_of=lambda o: gather_stages(o["mu"], mesh),
+                    plain_mu=ref["mu"])
+                out["records"].append(rec)
+            del dp, opt, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        # 18b: qwen2-moe on (data 2, model 2), fsdp, each dispatch
+        mesh2 = make_mesh(P18_MOE_MESH, ("data", "model"), "cuda")
+        arch = "qwen2-moe-a2.7b"
+        cfg, run = p18_run(arch)
+        base = Model(run)
+        params, batch = p18_inputs(base)
+        dp = distribute_tree(params, base.param_shardings(mesh2), None)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = base.opt_init(dp)
+        db = distribute_tree(batch, base.batch_shardings(mesh2), None)
+        del batch
+        for impl in P18_MOE_IMPLS:
+            model = Model(run.with_(moe_impl=impl))
+
+            def step(p, o, b, model=model):
+                with use_mesh(mesh2):
+                    return model.train_step(p, o, b)
+            rec = multidevice_run(
+                f"18b {impl} {arch}", f"18b {impl} {arch}", step,
+                (dp, opt, db), plain[arch]["metrics"], None,
+                train_launches(cfg), P18_GN_RTOL["moe"])
+            out["records"].append(rec)
+    finally:
+        dist.destroy_process_group()
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump({**out, "peak_device_gb":
+                       torch.cuda.max_memory_allocated() / 1e9,
+                       "launched": {n: [[list(k), p] for k, p in keys.items()]
+                                    for n, keys in LAUNCHED.items()}}, f)
+    return 0
+
+
+def phase_examples():
+    """Phase 18c: each ``examples/torch_*.py`` as a subprocess on the card
+    at small flags, P18_EXAMPLE_LANES at a time; each must exit 0 and end
+    with its final line. The train example's two runs go one after the
+    other in one lane and share a checkpoint directory, the second
+    resuming from the first's last checkpoint."""
+    print("== phase 18c: the port's examples on the card", flush=True)
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+    recs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, args):
+            if name == "torch_train_lm":
+                args = args + ["--ckpt-dir", os.path.join(tmp, "ck")]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples", name + ".py"),
+                 *args], env=env, capture_output=True, text=True,
+                timeout=P18_EXAMPLE_TIMEOUT, cwd=tmp)
+            return res, time.perf_counter() - t0
+        train = [e for e in P18_EXAMPLES if e[0] == "torch_train_lm"]
+        with ThreadPoolExecutor(P18_EXAMPLE_LANES) as pool:
+            chain = pool.submit(lambda: [(e, run(e[0], e[1]))
+                                         for e in train])
+            futs = [(e, pool.submit(run, e[0], e[1])) for e in P18_EXAMPLES
+                    if e not in train]
+            done = [(e, f.result()) for e, f in futs] + chain.result()
+    for (name, args, last), (res, secs) in done:
+        lines = res.stdout.strip().splitlines()
+        rec = {"example": name, "args": args, "rc": res.returncode,
+               "s": secs, "last_line": lines[-1] if lines else ""}
+        print("  example " + json.dumps(rec), flush=True)
+        if res.returncode != 0:
+            print(res.stdout[-3000:] + res.stderr[-3000:], flush=True)
+        check(res.returncode == 0 and rec["last_line"].startswith(last),
+              f"{name} {' '.join(args)}: exit 0 in {secs:.3f} s, final "
+              f"line {rec['last_line'][:60]!r}")
+        recs.append(rec)
+    return recs
+
+
+def phase_cross_pod(beside=None):
+    """Phase 18a-b: the plain steps of phase 18's three runs on cuda:0 in
+    this process, then four gloo processes on cuda:0 hold the cross-pod
+    steps and the MoE dispatches against them. The processes' launched
+    shape keys join phase 13's. ``beside`` (18c, the examples in their
+    own processes) runs here while the four run."""
+    print("== phase 18a-b: cross-pod steps on a model axis (pod 2, data 1, "
+          "model 2) and the MoE dispatches on (data 2, model 2), four gloo "
+          "processes on cuda:0", flush=True)
+    import tempfile
+    import torch
+    from repro_torch._tree import to_device, tree_leaves
+    from repro_torch.models.model_zoo import Model
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = {}
+        for arch in P18_LAYERS:
+            cfg, run = p18_run(arch)
+            model = Model(run)
+            params, batch = p18_inputs(model)
+            t0 = time.perf_counter()
+            p2, opt, m = model.train_step(params, model.opt_init(params),
+                                          batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            metrics = {k: float(v) for k, v in m.items()}
+            # 18b's plain params and first moments stay here (3.5 GB and
+            # 7 GB): only its metrics go
+            moe = arch == "qwen2-moe-a2.7b"
+            plain[arch] = {"metrics": metrics,
+                           "params": None if moe else to_device(p2, "cpu"),
+                           "mu": None if moe else [
+                               t.cpu() for t in tree_leaves(opt["mu"])]}
+            print(f"  plain step {arch} ({cfg.n_layers} layers) "
+                  f"{secs:.3f} s, {json.dumps(metrics)}", flush=True)
+            del params, batch, p2, opt, m
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.save(plain, os.path.join(tmp, "plain18.pt"))
+        del plain
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH", "")]))
+        world = math.prod(P18_MESH)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                   "--rank18", str(r), str(world), tmp],
+                                  env=env) for r in range(world)]
+        t0 = time.perf_counter()
+        examples = None
+        try:
+            examples = beside() if beside is not None else None
+            while any(q.poll() is None for q in procs) and all(
+                    q.returncode in (None, 0) for q in procs) and \
+                    time.perf_counter() - t0 < P18_TIMEOUT:
+                time.sleep(0.2)
+        finally:
+            for q in procs:
+                if q.poll() is None:
+                    q.kill()
+                q.wait()
+            for r in range(world):
+                log = os.path.join(tmp, f"rank{r}.out")
+                if os.path.exists(log):
+                    with open(log) as f:
+                        lines = f.read().splitlines()
+                    # every run's record, then the end of the log
+                    for line in [ln for ln in lines[:-40]
+                                 if ln.startswith("  multidevice")] + \
+                            lines[-40:]:
+                        print(f"  [rank {r}] {line}", flush=True)
+        check(all(q.returncode == 0 for q in procs),
+              f"the {world} 18a-b processes exited 0 in "
+              f"{time.perf_counter() - t0:.3f} s")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            for name, keys in res["launched"].items():
+                for key, path in keys:
+                    LAUNCHED[name].setdefault(tuple(key), path)
+            ranks.append(res)
+    peaks = [res["peak_device_gb"] for res in ranks]
+    print(f"  peak device GB per process {peaks}, {sum(peaks):.3f} in all",
+          flush=True)
+    by_label = {}
+    for res in ranks:
+        for rec in res["records"]:
+            by_label.setdefault(rec["run"], []).append(rec)
+            label, m = rec["run"], rec["metrics"]
+            check(rec["loss_rel"] <= (P18_LOSS_RTOL if label.startswith("18a")
+                                      else TP_LOSS_RTOL),
+                  f"{label}: loss within rel of the plain step's "
+                  f"({rec['loss_rel']:.3e})")
+            if label.startswith("18a") and "int8" not in label:
+                check(rec["grad_leaf_rel_max"] <= TP_GRAD_LEAF_RTOL,
+                      f"{label}: every gradient leaf within rel "
+                      f"{TP_GRAD_LEAF_RTOL} of the plain step's (largest "
+                      f"{rec['grad_leaf_rel_max']:.3e})")
+            if "pipeline" in label:
+                check(rec["xent_diff"] <= PP_XENT_TOL,
+                      f"{label}: xent within {PP_XENT_TOL} of the plain "
+                      f"step's ({rec['xent_diff']:.3e})")
+                check(rec["collective_calls"].get("ppermute", 0) > 0,
+                      f"{label}: the pipe rotated by ppermute")
+            if "int8" in label:
+                check(rec["int8_wire_ok"],
+                      f"{label}: the sync hands the all-gather only int8 "
+                      f"shards and f32 scales: {rec['sync_bytes']}")
+                check(rec["int8_rounding_ratio"] <= 1.0,
+                      f"{label}: each synced gradient leaf within half the "
+                      f"pods' mean int8 scale of their exact mean "
+                      f"({rec['int8_rounding_ratio']:.4f} of it)")
+            if "manual_ep" in label:
+                check(rec["collective_calls"].get("all_to_all", 0) > 0,
+                      f"{label}: experts exchanged by all_to_all "
+                      f"({rec['collective_calls']})")
+    check(len(by_label) == 8 and all(len(v) == 4 for v in by_label.values()),
+          f"8 runs on each of the 4 processes: {sorted(by_label)}")
+    check(examples is not None and len(examples) == len(P18_EXAMPLES),
+          f"18c ran the {len(P18_EXAMPLES)} example runs")
+    return {"ranks": ranks, "examples": examples}
+
+
 # ----------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2899,6 +3387,16 @@ def main() -> int:
         for rec in res["records"]:
             fa_paths[rec["path"]] = (fa_paths.get(rec["path"], 0)
                                      + rec["launches"]["flash_attention_fwd"])
+    # 18c, the examples (their own processes on the card), runs here
+    # while 18a-b's four processes run
+    cross = timed("phase 18a-c", phase_cross_pod,
+                  lambda: timed("phase 18c", phase_examples))
+    for res in cross["ranks"]:                          # all four processes'
+        for rec in res["records"]:
+            for name, n in rec["launches"].items():
+                if n:
+                    by_path[name][rec["path"]] = (
+                        by_path[name].get(rec["path"], 0) + n)
     check(by_path["selective_scan_fwd"].get("serve jamba-v0.1-52b")
           and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
           "the jamba serve path launched both kernels")
@@ -2979,6 +3477,11 @@ if __name__ == "__main__":
         from repro_torch.parallel._collectives import carry_gloo_cuda
         with carry_gloo_cuda():
             rc = rank_17a(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(rc)
+    if sys.argv[1:2] == ["--rank18"]:       # one of phase 18a-b's processes
+        from repro_torch.parallel._collectives import carry_gloo_cuda
+        with carry_gloo_cuda():
+            rc = rank_18(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
         sys.exit(rc)
     if sys.argv[1:2] == ["--cells17b"]:     # one of phase 17b's processes
         sys.exit(rank_17b(sys.argv[2], sys.argv[3]))

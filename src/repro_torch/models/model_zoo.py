@@ -43,17 +43,11 @@ from repro_torch.models.params import init_params, logical_axes, torch_dtype
 from repro_torch.optim.optimizers import (clip_by_global_norm, make_optimizer,
                                           opt_state_axes)
 from repro_torch.optim.schedules import cosine_schedule
-from repro_torch.parallel.sharding import (NamedSharding, get_rules,
-                                           is_dtensor, placements,
+from repro_torch.parallel.sharding import (NamedSharding, as_plain,
+                                           get_rules, is_dtensor, placements,
                                            redistribute, replicated,
-                                           tree_pspecs,
-                                           tree_shardings, use_rules)
-
-
-def _plain(v):
-    """A metric as a plain tensor: a DTensor's value, reduced if it is a
-    pending sum."""
-    return replicated(v).to_local() if is_dtensor(v) else v
+                                           tree_pspecs, tree_shardings,
+                                           use_rules)
 
 
 @dataclass
@@ -187,7 +181,7 @@ class Model:
             grads = torch.autograd.grad(loss, leaves)
             grads = [redistribute(g, p.placements) if is_dtensor(g) else g
                      for g, p in zip(grads, leaves)]
-        return list(grads), {k: _plain(v.detach())
+        return list(grads), {k: as_plain(v.detach())
                              for k, v in metrics.items()}
 
     def apply_grads(self, params, opt_state, grads, metrics, gnorm=None):
@@ -201,8 +195,8 @@ class Model:
             lr = self.schedule(opt_state["step"] + 1)   # 0-based counter
             params, opt_state = self.opt_update(params, grads, opt_state,
                                                 lr=lr)
-        return params, opt_state, dict(metrics, grad_norm=_plain(gnorm),
-                                       lr=_plain(lr))
+        return params, opt_state, dict(metrics, grad_norm=as_plain(gnorm),
+                                       lr=as_plain(lr))
 
     @property
     def train_step(self) -> Callable:
@@ -241,7 +235,7 @@ class Model:
 
         def fn(params, batch):
             with torch.no_grad(), self.scope():
-                return {k: _plain(v) for k, v in tfm.forward_train(
+                return {k: as_plain(v) for k, v in tfm.forward_train(
                     cfg, run, params, batch)[1].items()}
 
         return fn

@@ -27,13 +27,21 @@ reference leaves them to XLA. Ties in the router's top-k go to the lower
 expert index, as ``jax.lax.top_k`` breaks them (a stable descending
 sort), and the capacity drops follow the reference's stable sort.
 
-On DTensors (tensor parallelism and FSDP storage, ``_moe_sharded``) the
-sort dispatch runs as the reference's does under GSPMD: groups split over
-the batch axes, experts over ``model``, at the reference's five
-constraint sites. The routing, sort, cumsum and scatters of a group and
-the combine's gather have no DTensor rule; they are independent per
-group, so each process runs them on its own groups (``local_map``), the
-router gathered whole and the expert outputs gathered over ``model``.
+On DTensors (tensor parallelism and FSDP storage) every dispatch runs
+as the reference's does under GSPMD: groups split over the batch axes,
+experts over ``model``, at the reference's constraint sites. The
+routing, sort, cumsum and scatters of a group (or the one-hot dispatch
+and combine einsums of ``moe_gshard``) and the combine's gather have no
+DTensor rule; they are independent per group, so each process runs them
+on its own groups (``local_map``, ``_moe_sharded``), the router gathered
+whole and the expert outputs gathered over ``model``. ``moe_manual_ep``
+on DTensors (``_manual_ep_sharded``) is one ``local_map`` over groups
+split over every mesh dim: as the reference's ``in_specs`` ``P(("data",
+"model"))``, each process holds the E/n_ep experts of its ``(data,
+model)`` index, its local shard of each expert weight (placed by
+``redistribute``: under FSDP the data-split embed dim is gathered and the
+expert dim split over both axes), and exchanges the expert buffers by
+``all_to_all`` with the other processes of its pod.
 
 Determinism on the card: the only scatter with duplicate indices writes
 the dropped assignments into the sentinel slot ``E*C``, which is never
@@ -99,9 +107,7 @@ def _aux_loss(cfg: ModelConfig, probs, idx, mesh=None, axes=()):
     assignments to expert e per token (counted, not one-hot summed); over
     the tokens of every process of ``axes`` when ``mesh`` is given."""
     E = cfg.n_experts
-    counts = torch.zeros(E, dtype=torch.float32, device=idx.device)
-    counts.index_add_(0, idx.reshape(-1),
-                      torch.ones(idx.numel(), device=idx.device))
+    counts = _counts(idx, E)
     n_tok = idx.numel() // idx.shape[-1]
     if mesh is None:
         f_e = counts / n_tok
@@ -110,7 +116,13 @@ def _aux_loss(cfg: ModelConfig, probs, idx, mesh=None, axes=()):
         n_tok *= mesh.axis_size(axes)
         f_e = coll.psum(counts, axes, mesh) / n_tok
         p_e = coll.psum(probs.reshape(-1, E).sum(0), axes, mesh) / n_tok
-    return cfg.router_aux_weight * E * torch.sum(f_e * p_e)
+    return _aux_term(cfg, f_e, p_e)
+
+
+def _aux_term(cfg: ModelConfig, f_e, p_e):
+    """The load-balance loss from each expert's share of the assignments
+    ``f_e`` and its mean router probability ``p_e``."""
+    return cfg.router_aux_weight * cfg.n_experts * torch.sum(f_e * p_e)
 
 
 def _token_group():
@@ -250,10 +262,64 @@ def _reshape_rows(x, shape):
                      device_mesh=mesh)(redistribute(x, pl))
 
 
-def _moe_sharded(cfg: ModelConfig, p, x):
-    """The sort dispatch on DTensors (see the module's note)."""
+def _sort_dispatch(cfg: ModelConfig, xt, router, C: int):
+    """The sort dispatch of groups ``xt`` (G,Tg,D): (expert inputs
+    (G,E,C,D), what its combine takes besides the expert outputs, the
+    router probs, the expert ids)."""
+    E = cfg.n_experts
+    probs, gate_vals, idx = _route(cfg, {"router": router}, xt)
+    slot, keep, token_for_slot, valid = _dispatch(idx, E, C)
+    return (_expert_inputs(xt, token_for_slot, valid, E, C),
+            (slot, keep, gate_vals), probs, idx)
+
+
+def _gshard_dispatch(cfg: ModelConfig, xt, router, C: int):
+    """The GShard one-hot dispatch of groups ``xt``, as
+    :func:`_sort_dispatch` returns it (its combine takes the combine
+    weights (G,Tg,E,C))."""
+    E = cfg.n_experts
+    probs, gate_vals, idx = _route(cfg, {"router": router}, xt)
+    onehot = F.one_hot(idx, E).float()                 # (G,Tg,K,E)
+    G, Tg, K = idx.shape
+    flat = onehot.reshape(G, Tg * K, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = torch.einsum("gne,gne->gn", pos, flat).reshape(G, Tg, K)
+    keep = (pos < C).float()
+    gate_kept = gate_vals * keep
+    # a dropped assignment's position (>= C) has no column, as in
+    # jax.nn.one_hot: clamped, then zeroed by keep
+    pos_oh = F.one_hot(torch.clamp(pos.long(), max=C - 1), C).float() \
+        * keep[..., None]
+    disp = torch.einsum("gtke,gtkc->gtec", onehot, pos_oh)
+    comb = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_kept)
+    xin = torch.einsum("gtec,gtd->gecd", disp.to(xt.dtype), xt)
+    return xin, (comb,), probs, idx
+
+
+def _gshard_combine(yexp, comb):
+    return torch.einsum("gtec,gecd->gtd", comb.to(yexp.dtype), yexp)
+
+
+# impl -> (dispatch, combine, the number of tensors the dispatch hands
+# its combine besides the expert outputs)
+_DISPATCHES = {"sort": (_sort_dispatch, _combine, 3),
+               "gshard": (_gshard_dispatch, _gshard_combine, 1)}
+
+
+def _counts(idx, E: int):
+    """Assignments per expert (f32), counted."""
+    counts = torch.zeros(E, dtype=torch.float32, device=idx.device)
+    counts.index_add_(0, idx.reshape(-1),
+                      torch.ones(idx.numel(), device=idx.device))
+    return counts
+
+
+def _moe_sharded(cfg: ModelConfig, p, x, impl: str = "sort"):
+    """The sort (or GShard) dispatch on DTensors (see the module's
+    note)."""
     from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
+    dispatch_of, combine_of, n_state = _DISPATCHES[impl]
     B, S, D = x.shape
     E = cfg.n_experts
     G, Tg = _grouping(B * S)
@@ -268,32 +334,27 @@ def _moe_sharded(cfg: ModelConfig, p, x):
     xt = redistribute(xt, g_pl)
 
     def dispatch(xl, rl):
-        probs, gate_vals, idx = _route(cfg, {"router": rl}, xl)
-        slot, keep, token_for_slot, valid = _dispatch(idx, E, C)
-        counts = torch.zeros(E, dtype=torch.float32, device=idx.device)
-        counts.index_add_(0, idx.reshape(-1),
-                          torch.ones(idx.numel(), device=idx.device))
-        return (_expert_inputs(xl, token_for_slot, valid, E, C), slot, keep,
-                gate_vals, counts, probs.reshape(-1, E).sum(0))
+        xin, state, probs, idx = dispatch_of(cfg, xl, rl, C)
+        return (xin, *state, _counts(idx, E), probs.reshape(-1, E).sum(0))
 
     # the router whole on every process (fsdp splits its embed dim)
-    xin, slot, keep, gate_vals, counts, psum = local_map(
-        dispatch, out_placements=(g_pl,) * 4 + (part, part),
+    xin, *state, counts, psum = local_map(
+        dispatch, out_placements=(g_pl,) * (1 + n_state) + (part, part),
         in_placements=(g_pl, whole), in_grad_placements=(g_pl, part),
         device_mesh=mesh)(xt, redistribute(p["router"], whole))
     xin = constrain(xin, None, "act_moe_group", "act_experts", None, None)
     yexp = _experts_sharded(p, xin)
-    # the combine's gather reads every expert's slots: the expert outputs
-    # are gathered whole over model
-    y = local_map(_combine, out_placements=g_pl, in_placements=(g_pl,) * 4,
-                  in_grad_placements=(g_pl,) * 4, device_mesh=mesh)(
-        redistribute(yexp, g_pl), slot, keep, gate_vals)
+    # the combine reads every expert's slots: the expert outputs are
+    # gathered whole over model
+    y = local_map(combine_of, out_placements=g_pl,
+                  in_placements=(g_pl,) * (1 + n_state),
+                  in_grad_placements=(g_pl,) * (1 + n_state),
+                  device_mesh=mesh)(redistribute(yexp, g_pl), *state)
     if cfg.n_shared_experts:
         y = y + mlp(cfg, p["shared"], xt)
     n_tok = B * S
-    aux = cfg.router_aux_weight * E * torch.sum(
-        (counts / n_tok) * (psum / n_tok))
-    return _reshape_rows(y, (B, S, D)), aux
+    return (_reshape_rows(y, (B, S, D)),
+            _aux_term(cfg, counts / n_tok, psum / n_tok))
 
 
 def moe(cfg: ModelConfig, p, x):
@@ -326,14 +387,18 @@ def moe(cfg: ModelConfig, p, x):
 def moe_manual_ep(cfg: ModelConfig, p, x):
     """Sort dispatch + an explicit expert all-to-all over the ``(data,
     model)`` processes of the mesh in use (``n_ep`` of them): process
-    ``r`` owns experts ``[r*E/n_ep, (r+1)*E/n_ep)`` of the replicated
-    expert weights. Falls back to :func:`moe`, as the reference does, with
-    no mesh, one such process, or E or G that does not split ``n_ep``
-    ways. DTensor inputs take the sort dispatch's sharded path only."""
-    _refuse_dtensor("manual_ep", x)
+    ``r`` owns experts ``[r*E/n_ep, (r+1)*E/n_ep)``: of the replicated
+    expert weights, or its shard of DTensor ones (``_manual_ep_sharded``).
+    Falls back to :func:`moe`, as the reference does, with no mesh, one
+    such process, or E or G that does not split ``n_ep`` ways."""
     mesh, ep_axes, n_ep = _token_group()
     B, S, D = x.shape
     E = cfg.n_experts
+    if is_dtensor(x):
+        G, _ = _grouping(B * S)
+        if mesh is None or E % n_ep or G % x.device_mesh.size():
+            return moe(cfg, p, x)
+        return _manual_ep_sharded(cfg, p, x, mesh, ep_axes, n_ep)
     G, Tg = _grouping(B * S * n_ep)
     if mesh is None or E % n_ep or G % n_ep:
         return moe(cfg, p, x)
@@ -345,19 +410,10 @@ def moe_manual_ep(cfg: ModelConfig, p, x):
     probs, gate_vals, idx = _route(cfg, p, xt)
     slot, keep, token_for_slot, valid = _dispatch(idx, E, C)
     xin = _expert_inputs(xt, token_for_slot, valid, E, C)   # (G_loc,E,C,D)
-
-    # to the owners: (n_ep, G_loc, E_loc, C, D), chunk j to process j;
-    # back come every process's groups for the resident experts,
-    # source-major
-    z = xin.reshape(G_loc, n_ep, E_loc, C, D).movedim(1, 0)
-    z = coll.all_to_all(z, ep_axes, 0, 0, mesh)
     r = coll.axis_index(ep_axes, mesh)
-    w = {k: p[k][r * E_loc:(r + 1) * E_loc]
-         for k in ("wi_gate", "wi_up", "wo")}
-    yz = _experts(w, z.reshape(n_ep * G_loc, E_loc, C, D))
-    yz = coll.all_to_all(yz.reshape(n_ep, G_loc, E_loc, C, D), ep_axes, 0, 0,
-                         mesh)
-    yexp = yz.movedim(0, 1).reshape(G_loc, E, C, D)
+    yexp = _exchange(xin, {k: p[k][r * E_loc:(r + 1) * E_loc]
+                           for k in ("wi_gate", "wi_up", "wo")},
+                     mesh, ep_axes, n_ep)
     y = _combine(yexp, slot, keep, gate_vals)
 
     if cfg.n_shared_experts:
@@ -365,46 +421,83 @@ def moe_manual_ep(cfg: ModelConfig, p, x):
     return y.reshape(B, S, D), _aux_loss(cfg, probs, idx, mesh, ep_axes)
 
 
+def _exchange(xin, w, mesh, ep_axes, n_ep: int):
+    """(G_loc,E,C,D) expert inputs -> outputs, through the resident
+    experts ``w`` (E/n_ep of them): to the owners as (n_ep, G_loc, E_loc,
+    C, D), chunk j to process j; back come every process's groups for
+    the resident experts, source-major, and the results go back the same
+    way."""
+    G_loc, E, C, D = xin.shape
+    E_loc = E // n_ep
+    z = xin.reshape(G_loc, n_ep, E_loc, C, D).movedim(1, 0)
+    z = coll.all_to_all(z, ep_axes, 0, 0, mesh)
+    yz = _experts(w, z.reshape(n_ep * G_loc, E_loc, C, D))
+    yz = coll.all_to_all(yz.reshape(n_ep, G_loc, E_loc, C, D), ep_axes, 0, 0,
+                         mesh)
+    return yz.movedim(0, 1).reshape(G_loc, E, C, D)
+
+
+def _manual_ep_sharded(cfg: ModelConfig, p, x, mesh, ep_axes, n_ep: int):
+    """``moe_manual_ep`` on DTensors (see the module's note): the groups
+    split over every mesh dim, each process's dispatch, exchange and
+    combine in one ``local_map``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, S, D = x.shape
+    E = cfg.n_experts
+    G, Tg = _grouping(B * S)
+    C = _capacity(cfg, Tg)
+    dm = x.device_mesh
+    xt = constrain(_reshape_rows(x, (G, Tg, D)), None, "act_moe_group", None,
+                   None)
+    g_pl = [Shard(0)] * dm.ndim
+    part = [Partial()] * dm.ndim
+    whole = [Replicate()] * dm.ndim
+    # each expert weight split over (data, model) on its expert dim, data
+    # major (the all-to-all's order); whole over pod, where its gradient
+    # is a pending sum over the pod's groups
+    ep = [n in ep_axes for n in dm.mesh_dim_names]
+    w_pl = [Shard(0) if e else Replicate() for e in ep]
+    w_grad = [Shard(0) if e else Partial() for e in ep]
+    names = ("wi_gate", "wi_up", "wo")
+
+    def local(xl, rl, *ws):
+        xin, (slot, keep, gate_vals), probs, idx = _sort_dispatch(
+            cfg, xl, rl, C)
+        yexp = _exchange(xin, dict(zip(names, ws)), mesh, ep_axes, n_ep)
+        return (_combine(yexp, slot, keep, gate_vals), _counts(idx, E),
+                probs.reshape(-1, E).sum(0))
+
+    y, counts, psum = local_map(
+        local, out_placements=(g_pl, part, part),
+        in_placements=(g_pl, whole) + (w_pl,) * 3,
+        in_grad_placements=(g_pl, part) + (w_grad,) * 3, device_mesh=dm)(
+        redistribute(xt, g_pl), redistribute(p["router"], whole),
+        *(redistribute(p[k], w_pl) for k in names))
+    if cfg.n_shared_experts:
+        y = y + mlp(cfg, p["shared"], xt)
+    n_tok = B * S
+    return (_reshape_rows(y, (B, S, D)),
+            _aux_term(cfg, counts / n_tok, psum / n_tok))
+
+
 # ---------------------------------------------------------------------------
 # GShard one-hot einsum dispatch (reference)
 # ---------------------------------------------------------------------------
 
-def _refuse_dtensor(impl: str, x):
-    if is_dtensor(x):
-        raise NotImplementedError(
-            f"moe_impl={impl!r} on DTensors: tensor parallelism and FSDP "
-            f"storage run the sort dispatch (moe_impl='sort') only")
-
-
 def moe_gshard(cfg: ModelConfig, p, x):
-    _refuse_dtensor("gshard", x)
+    if is_dtensor(x):
+        return _moe_sharded(cfg, p, x, "gshard")
     mesh, axes, _ = _token_group()
     if mesh is not None:
         return _whole_batch(moe_gshard, cfg, p, x, mesh, axes)
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
     G, Tg = _grouping(B * S)
     C = _capacity(cfg, Tg)
 
     xt = x.reshape(G, Tg, D)
-    probs, gate_vals, idx = _route(cfg, p, xt)
-
-    onehot = F.one_hot(idx, E).float()                 # (G,Tg,K,E)
-    flat = onehot.reshape(G, Tg * K, E)
-    pos = torch.cumsum(flat, dim=1) - flat
-    pos = torch.einsum("gne,gne->gn", pos, flat).reshape(G, Tg, K)
-    keep = (pos < C).float()
-    gate_kept = gate_vals * keep
-    # a dropped assignment's position (>= C) has no column, as in
-    # jax.nn.one_hot: clamped, then zeroed by keep
-    pos_oh = F.one_hot(torch.clamp(pos.long(), max=C - 1), C).float() \
-        * keep[..., None]
-    disp = torch.einsum("gtke,gtkc->gtec", onehot, pos_oh)
-    comb = torch.einsum("gtke,gtkc,gtk->gtec", onehot, pos_oh, gate_kept)
-
-    xin = torch.einsum("gtec,gtd->gecd", disp.to(x.dtype), xt)
-    yexp = _experts(p, xin)
-    y = torch.einsum("gtec,gecd->gtd", comb.to(x.dtype), yexp)
+    xin, (comb,), probs, idx = _gshard_dispatch(cfg, xt, p["router"], C)
+    y = _gshard_combine(_experts(p, xin), comb)
 
     if cfg.n_shared_experts:
         y = y + mlp(cfg, p["shared"], xt)

@@ -13,10 +13,28 @@ wire format is controllable:
     Nothing is dequantized before the wire.
 
 ``multipod_train_step`` runs one process per device on a ``(pod, data,
-model)`` mesh: each process takes its rows of the global batch (split
-over ``(pod, data)``, pod-major), the gradients are averaged over
-``data`` with a plain f32 all-reduce and then over ``pod`` with the
-chosen wire format, and every process applies the identical update.
+model)`` mesh, as the reference's ``shard_map`` that is manual over
+``pod`` and automatic over ``(data, model)``. Two layouts of the params
+and optimizer state:
+
+  * plain tensors, replicated on every process, on a mesh whose model
+    axis is 1: each process takes its rows of the global batch (split
+    over ``(pod, data)``, pod-major), the gradients are averaged over
+    ``data`` with a plain f32 all-reduce and then over ``pod`` with the
+    chosen wire format;
+  * DTensor trees on this process's pod sub-mesh (``mesh.without("pod")``:
+    the ``(data, model)`` dims of the mesh), placed by
+    ``distribute_tree(tree, model.param_shardings(mesh.without("pod")))``
+    and the like, and replicated across pods: each pod takes its rows, placed
+    on the sub-mesh by the model's batch rule, and ``Model.grads`` runs
+    there with tensor parallelism over ``model`` and the data reduction
+    over ``data``. The sync over ``pod`` then runs on each gradient's
+    local shard: the processes of a pod group share their ``(data,
+    model)`` coordinates and hold the same shard, so every wire format
+    keeps its dtypes (int8 hands the all-gather int8 shards and f32
+    scales).
+
+Every process then applies the identical update.
 """
 from __future__ import annotations
 
@@ -24,7 +42,9 @@ import torch
 
 from repro_torch import _tree
 from repro_torch.parallel import _collectives as coll
-from repro_torch.parallel.sharding import use_mesh
+from repro_torch.parallel.sharding import (distribute_tree, is_dtensor,
+                                           on_local, tree_shardings,
+                                           use_mesh)
 
 
 def quantize_int8(g):
@@ -36,7 +56,9 @@ def quantize_int8(g):
 
 def sync_grads(grads, axis: str, method: str = "none", mesh=None):
     """Average gradients across ``axis`` of ``mesh`` (default: the mesh in
-    use) with the chosen wire format."""
+    use) with the chosen wire format. A DTensor leaf (on a sub-mesh
+    without ``axis``) is synced on its local shard and keeps its
+    placements."""
     if mesh is None:
         from repro_torch.parallel.sharding import get_mesh
         mesh = get_mesh()
@@ -58,18 +80,36 @@ def sync_grads(grads, axis: str, method: str = "none", mesh=None):
 
     fn = {"none": none_, "bf16": bf16_, "int8": int8_}[method]
     with torch.no_grad():
-        return _tree.tree_map(fn, grads)
+        return _tree.tree_map(lambda g: on_local(fn, g), grads)
 
 
 # ---------------------------------------------------------------------------
 # The pieces of a data-parallel step.
 # ---------------------------------------------------------------------------
 
-def check_mesh(mesh):
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a model axis of size {mesh.shape['model']}: tensor "
-            f"parallelism is not in the port yet (size 1 only)")
+def sharded_layout(params, mesh) -> bool:
+    """Whether ``params`` are DTensor trees on ``mesh``'s pod sub-mesh
+    (else plain tensors replicated on every process). Plain params on a
+    model axis above 1 are refused: each process of it would compute the
+    same rows, with no tensor parallelism."""
+    if is_dtensor(_tree.tree_leaves(params)[0]):
+        return True
+    if mesh.axis_size("model") > 1:
+        raise ValueError(
+            f"plain params on {mesh}, whose model axis is above 1: place "
+            f"them as DTensors on mesh.without('pod') (distribute_tree "
+            f"with model.param_shardings)")
+    return False
+
+
+def place_rows(rules, rows, mesh):
+    """Rows of a batch (every leaf's leading dim the batch) as DTensors on
+    ``mesh``, split as the ``act_batch`` rule resolves there; each process
+    takes its shard of its own copy (no message)."""
+    axes = _tree.tree_map(lambda x: ("act_batch",) + (None,) * (x.dim() - 1),
+                          rows)
+    return distribute_tree(rows, tree_shardings(rules, axes, rows, mesh),
+                           src_data_rank=None)
 
 
 def local_rows(batch, mesh, axes):
@@ -111,15 +151,15 @@ def multipod_train_step(model, mesh, method: str = "bf16"):
     """Wrap a Model's train step with explicit compressed cross-pod sync.
 
     ``step(params, opt_state, batch)``: params and optimizer state
-    replicated on every process, ``batch`` the global batch. Each process
-    computes the gradients of its rows, the data mean and the ``method``
-    sync over ``pod`` average them, and every process applies the
-    identical update. Metrics are averaged over ``(pod, data)``.
+    replicated on every process, or DTensor trees on ``mesh.without("pod")``
+    (see the module's note); ``batch`` the global batch. Each pod computes
+    the gradients of its rows, the ``method`` sync over ``pod`` averages
+    them, and every process applies the identical update. Metrics are
+    averaged over ``(pod, data)``.
     """
     assert "pod" in mesh.shape, "multipod_train_step needs a 'pod' axis"
-    check_mesh(mesh)
 
-    def step(params, opt_state, batch):
+    def replicated_step(params, opt_state, batch):
         local = local_rows(batch, mesh, ("pod", "data"))
         with use_mesh(mesh):
             grads, metrics = model.grads(params, local)
@@ -127,5 +167,17 @@ def multipod_train_step(model, mesh, method: str = "bf16"):
         grads = sync_grads(grads, "pod", method, mesh)
         metrics = metrics_mean(metrics, mesh, ("data", "pod"))
         return model.apply_grads(params, opt_state, grads, metrics)
+
+    def step(params, opt_state, batch):
+        if not sharded_layout(params, mesh):
+            return replicated_step(params, opt_state, batch)
+        sub = mesh.without("pod")
+        local = place_rows(model.rules, local_rows(batch, mesh, "pod"), sub)
+        with use_mesh(sub):
+            # the data reduction happens here, on the sub-mesh
+            grads, metrics = model.grads(params, local)
+            grads = sync_grads(grads, "pod", method, mesh)
+            metrics = metrics_mean(metrics, mesh, ("pod",))
+            return model.apply_grads(params, opt_state, grads, metrics)
 
     return step

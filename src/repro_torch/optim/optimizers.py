@@ -11,6 +11,10 @@ the previous version may still be referenced (a checkpoint, a replica on
 the other tier). The math is the reference's, in float32: bias corrections
 from the step counter (a 0-d int32 tensor), decoupled weight decay on
 leaves of two or more dims only.
+
+The state of DTensor params is made shard by shard, laid out as its
+params (the step counter replicated on their mesh): no process holds the
+whole state at any point.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import functools
 import torch
 
 from repro_torch import _tree
-from repro_torch.parallel.sharding import is_axes
+from repro_torch.parallel.sharding import is_axes, is_dtensor
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -43,18 +47,54 @@ def clip_by_global_norm(grads, max_norm: float, g=None):
 # AdamW
 # ---------------------------------------------------------------------------
 
+def _zeros(p, dt, drop=None):
+    """Zeros of ``dt`` shaped as ``p``, without its dim ``drop`` when one
+    is given. For a DTensor ``p``, only this process's shard, laid out as
+    ``p`` (a split of the dropped dim becomes whole)."""
+    keep = [d for d in range(p.dim()) if drop is None or d != drop % p.dim()]
+    if not is_dtensor(p):
+        return torch.zeros([p.shape[d] for d in keep], dtype=dt,
+                           device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def moved(q):
+        if drop is None or not q.is_shard():
+            return q
+        d = q.dim % p.dim()
+        if d not in keep:
+            return Replicate()
+        if isinstance(q, _StridedShard):
+            return _StridedShard(keep.index(d), split_factor=q.split_factor)
+        return Shard(keep.index(d))
+    local = p.to_local()
+    pl = [moved(q) for q in p.placements]
+    shape = [p.shape[d] for d in keep]
+    return DTensor.from_local(
+        torch.zeros([local.shape[d] for d in keep], dtype=dt,
+                    device=local.device), p.device_mesh, pl,
+        run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
 def adamw_init(params, state_dtype: str = "float32"):
     dt = getattr(torch, state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: _zeros(p, dt)
     return {"mu": _tree.tree_map(zeros, params),
             "nu": _tree.tree_map(zeros, params),
             "step": _step0(params)}
 
 
 def _step0(params):
-    """The 0-d int32 step counter, on the params' device."""
-    return torch.zeros((), dtype=torch.int32,
-                       device=_tree.tree_leaves(params)[0].device)
+    """The 0-d int32 step counter, on the params' device (replicated on
+    the mesh of DTensor params)."""
+    p = _tree.tree_leaves(params)[0]
+    if not is_dtensor(p):
+        return torch.zeros((), dtype=torch.int32, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(
+        torch.zeros((), dtype=torch.int32, device=p.to_local().device),
+        p.device_mesh, [Replicate()] * p.device_mesh.ndim, run_check=False)
 
 
 def adamw_update(params, grads, state, *, lr, b1=0.9, b2=0.95, eps=1e-8,
@@ -95,11 +135,9 @@ def adafactor_init(params, state_dtype: str = "float32"):
     dt = getattr(torch, state_dtype)
 
     def init(p):
-        z = lambda shape: torch.zeros(shape, dtype=dt, device=p.device)
         if _factored(p.shape):
-            return {"vr": z(p.shape[:-1]),
-                    "vc": z(p.shape[:-2] + p.shape[-1:])}
-        return {"v": z(p.shape)}
+            return {"vr": _zeros(p, dt, -1), "vc": _zeros(p, dt, -2)}
+        return {"v": _zeros(p, dt)}
 
     return {"v": _tree.tree_map(init, params), "step": _step0(params)}
 

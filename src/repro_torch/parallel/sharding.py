@@ -148,7 +148,9 @@ class Mesh:
         """The process group over ``axes`` that holds this process. Groups
         over several axes are made the first time they are asked for: every
         process of the mesh must ask at the same point, as for any
-        collective."""
+        collective. A sub-mesh that does not span every process holds only
+        the groups its parent made for it (:meth:`without`): ``new_group``
+        must be called by every process alike."""
         axes = self._axes(axes)
         order = [self.axis_names.index(a) for a in axes]
         if order != sorted(order):
@@ -159,6 +161,11 @@ class Mesh:
             return dm.get_group(axes[0])
         if axes not in self._groups:
             import torch.distributed as dist
+            if dm.mesh.numel() != dist.get_world_size():
+                raise ValueError(
+                    f"a group over {axes} of a sub-mesh of "
+                    f"{dm.mesh.numel()} of {dist.get_world_size()} "
+                    f"processes: make it on the whole mesh")
             ranks = dm.mesh.movedim(order, list(range(-len(order), 0)))
             ranks = ranks.reshape(-1, math.prod(self.shape[a] for a in axes))
             me = dist.get_rank()
@@ -167,6 +174,21 @@ class Mesh:
                 if me in row:
                     self._groups[axes] = g
         return self._groups[axes]
+
+    def without(self, axis: str) -> "Mesh":
+        """This process's slice of the mesh across ``axis``: a live
+        sub-mesh over the other axes (a pod's ``(data, model)``) that
+        shares their process groups. Its group over several axes is the
+        parent's, which every process makes for every slice: the
+        processes of one slice alone cannot make a group."""
+        axes = tuple(a for a in self.axis_names if a != axis)
+        if not axes or len(axes) == len(self.axis_names):
+            raise ValueError(f"{self} has no axis beside {axis!r}, or "
+                             f"not {axis!r}")
+        sub = Mesh({a: self.shape[a] for a in axes}, self._live()[axes])
+        if len(axes) > 1:
+            sub._groups[axes] = self.group(axes)
+        return sub
 
     def _live(self):
         if self.device_mesh is None:
@@ -370,6 +392,30 @@ def local_shape_and_offset(shape, device_mesh, placements):
         offset[d] += start
         shape[d] = min(shape[d], start + chunk) - start
     return tuple(shape), tuple(offset)
+
+
+def on_local(fn, x):
+    """``fn(x)``; for a DTensor, ``fn`` of its local shard, wrapped with
+    its placements (``fn`` may change the size of a dim no placement
+    splits): the manual collectives' view of a DTensor."""
+    if not is_dtensor(x):
+        return fn(x)
+    import torch
+    from torch.distributed.tensor import DTensor
+    local = fn(x.to_local())
+    shape = list(x.shape)
+    for d, (a, b) in enumerate(zip(x.to_local().shape, local.shape)):
+        shape[d] += b - a
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def as_plain(v):
+    """``v`` as a plain tensor: a DTensor's whole value (a pending sum
+    reduced)."""
+    return replicated(v).to_local() if is_dtensor(v) else v
 
 
 def replicated(x):

@@ -96,53 +96,114 @@ def grad_compress(make_mesh, rank, inputs):
     """Each wire format's multipod step on ``inputs["mesh"]``: its
     metrics, its collective counts, (rank 0) the updated params, and what
     each call of ``sync_grads`` inside the step took (this pod's
-    gradients) and gave (the synced ones)."""
+    gradients) and gave (the synced ones). With a model axis above 1 the
+    params and AdamW state are DTensors on the pod's (data, model)
+    sub-mesh (``fsdp`` placements), and what the sync took and gave is
+    gathered whole (``pre``, ``synced``) and as this process's shards
+    (``pre_local``, ``synced_local``); ``local_elems`` counts them. The
+    optimizer state is ``model.opt_init`` of the params as placed; its
+    layout and Adafactor's are recorded."""
     from repro_torch import _tree
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import Model
     from repro_torch.optim import grad_compress as gc
+    from repro_torch.optim.optimizers import adafactor_init
     from repro_torch.parallel import _collectives as coll
+    from repro_torch.parallel.sharding import distribute_tree, is_dtensor
     mesh = make_mesh(inputs["mesh"])
     run = _tinyllama_run(2)
     model = Model(run)
     params = inputs["params"]
+    sub = mesh.without("pod")
+    if mesh.shape["model"] > 1:
+        params = distribute_tree(params, model.param_shardings(sub), None)
     opt = model.opt_init(params)
     batch = SyntheticLMData(run.model, run.shape).batch(0)
     syncs, sync = [], gc.sync_grads
 
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t.detach().clone()
+
+    def local(t):
+        return (t.to_local() if is_dtensor(t) else t).detach().clone()
+
     def recorded(grads, axis, method, mesh=None):
         out = sync(grads, axis, method, mesh)
-        syncs.append({"axis": axis, "pre": [g.detach().clone() for g in
-                                            _tree.tree_leaves(grads)],
-                      "synced": [g.detach().clone() for g in
-                                 _tree.tree_leaves(out)]})
+        g, o = _tree.tree_leaves(grads), _tree.tree_leaves(out)
+        syncs.append({"axis": axis, "pre": [whole(x) for x in g],
+                      "synced": [whole(x) for x in o],
+                      "pre_local": [local(x) for x in g],
+                      "synced_local": [local(x) for x in o]})
         return out
     gc.sync_grads = recorded
-    out = {"pod": mesh.coord("pod"), "rows": mesh.coord(("pod", "data"))}
+    leaves = _tree.tree_leaves(params)
+    # the pod sub-mesh's (data, model) group holds this pod's processes
+    pod_sum = torch.tensor([float(rank)])
+    torch.distributed.all_reduce(pod_sum, group=sub.group(("data",
+                                                           "model")))
+    try:        # a sub-mesh made by hand cannot make that group
+        from repro_torch.parallel.sharding import Mesh
+        Mesh(sub.shape, sub.device_mesh).group(("data", "model"))
+        refused = mesh.shape["pod"] == 1
+    except ValueError:
+        refused = True
+
+    def layout(t):
+        """(DTensor?, global shape, local shape, placements)"""
+        return (is_dtensor(t), tuple(t.shape), tuple(
+            (t.to_local() if is_dtensor(t) else t).shape),
+            str(tuple(t.placements)) if is_dtensor(t) else None)
+    # the optimizer states' layouts, made from the params, beside the
+    # placements the model's opt_shardings name; Adafactor's too
+    out = {"opt_layouts": [layout(t) for t in _tree.tree_leaves(opt)],
+           "opt_sharding_placements": _tree.tree_leaves(_tree.tree_map(
+               lambda _, s: str(tuple(s.placements)), opt,
+               model.opt_shardings(sub))),
+           "adafactor_layouts": [layout(t) for t in _tree.tree_leaves(
+               adafactor_init(params))],
+           "param_layouts": [layout(t) for t in leaves]}
+    out.update({
+        "pod": mesh.coord("pod"), "rows": mesh.coord(("pod", "data")),
+        "shard": mesh.coord(("data", "model")),
+        "pod_group_sum": float(pod_sum), "hand_sub_mesh_refused": refused,
+        "local_elems": sum((t.to_local() if is_dtensor(t) else t).numel()
+                           for t in leaves),
+        "n_leaves": len(leaves), "sharded": is_dtensor(leaves[0])})
     for method in ("none", "bf16", "int8"):
         coll.reset_counts()
         syncs.clear()
         p2, _, m = gc.multipod_train_step(model, mesh, method)(params, opt,
                                                                 batch)
+        counts = coll.counts()
+        p2 = _tree.tree_map(whole, p2)
         out[method] = {"metrics": {k: float(v) for k, v in m.items()},
-                       "counts": coll.counts(), "syncs": list(syncs),
+                       "counts": counts, "syncs": list(syncs),
                        "params": p2 if rank == 0 else None}
     return out
 
 
 def pipeline(make_mesh, rank, inputs):
     """One GPipe step over ``inputs["mesh"]``'s pods from the full params:
-    its metrics, counts and (rank 0) the full updated params."""
+    its metrics, counts, and the full updated params and AdamW first
+    moments (0.1 x each clipped gradient leaf). With a model axis above 1
+    the params are DTensors on the pod's (data, model) sub-mesh (``fsdp``
+    placements), and their AdamW state is made from them, before the
+    stages are split."""
+    from repro_torch import _tree
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import Model
     from repro_torch.parallel import _collectives as coll
     from repro_torch.parallel.pipeline import (gather_stages,
                                                pipeline_train_step,
                                                split_stages)
+    from repro_torch.parallel.sharding import distribute_tree, is_dtensor
     mesh = make_mesh(inputs["mesh"])
     run = _tinyllama_run(inputs["n_layers"])
     model = Model(run)
     params = inputs["params"]
+    if mesh.shape["model"] > 1:
+        params = distribute_tree(
+            params, model.param_shardings(mesh.without("pod")), None)
     opt = model.opt_init(params)
     batch = SyntheticLMData(run.model, run.shape).batch(0)
     coll.reset_counts()
@@ -150,10 +211,14 @@ def pipeline(make_mesh, rank, inputs):
     p2, o2, m = step(split_stages(params, mesh), split_stages(opt, mesh),
                      batch)
     counts = coll.counts()
-    full = gather_stages(p2, mesh)
+
+    def whole(tree):
+        return _tree.tree_map(lambda t: t.full_tensor() if is_dtensor(t)
+                              else t, gather_stages(tree, mesh))
     return {"metrics": {k: float(v) for k, v in m.items()}, "counts": counts,
             "local_layers": p2["stage_0"]["pos_0"]["ln1"]["scale"].shape[0],
-            "params": full if rank == 0 else None}
+            "sharded": is_dtensor(p2["embed"]["embedding"]),
+            "params": whole(p2), "mu": _tree.tree_leaves(whole(o2["mu"]))}
 
 
 def moe(make_mesh, rank, inputs):
@@ -192,6 +257,60 @@ def moe(make_mesh, rank, inputs):
                 out[(cfg.name, tuple(shape), impl)] = {
                     "y": y.detach(), "aux": float(aux), "gx": gx,
                     "gp": [g.detach() for g in gp], "ga": list(ga),
+                    "counts": coll.counts()}
+    return out
+
+
+def moe_dtensor(make_mesh, rank, inputs):
+    """The manual_ep and gshard dispatches on DTensors (the sort
+    dispatch's DTensor path is the ``tp`` scenario's): the layer's params
+    placed by the
+    ``fsdp`` rules and the batch and cotangent split over data, on the
+    (data, model) sub-mesh of each (pod, data, model) mesh of
+    ``inputs["meshes"]`` (every pod runs the whole batch). Per case: the
+    output, aux, and the gradients of sum(y * ct) + aux with respect to
+    the batch and the params, all gathered whole; the collective counts
+    and the placements the expert weights had."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import _tree
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import logical_axes
+    from repro_torch.optim.grad_compress import place_rows
+    from repro_torch.parallel import _collectives as coll
+    from repro_torch.parallel.sharding import (FSDP_RULES, distribute_tree,
+                                               redistribute, replicated,
+                                               tree_shardings, use_mesh,
+                                               use_rules)
+    out = {}
+    for shape in inputs["meshes"]:
+        sub = make_mesh(shape).without("pod")
+        for case in inputs["cases"]:
+            cfg = case["cfg"]
+            sh = tree_shardings(FSDP_RULES,
+                                logical_axes(M.moe_template(cfg)),
+                                case["params"], sub)
+            p = distribute_tree(case["params"], sh, None)
+            x, ct = (place_rows(FSDP_RULES, case[k], sub)
+                     for k in ("x", "ct"))
+            for impl in ("manual_ep", "gshard"):
+                leaves = [t.detach().requires_grad_()
+                          for t in _tree.tree_leaves(p)]
+                xg = x.detach().requires_grad_()
+                coll.reset_counts()
+                with use_mesh(sub), use_rules(FSDP_RULES), \
+                        implicit_replication():
+                    y, aux = M.MOE_IMPLS[impl](
+                        cfg, _tree.unflatten_like(p, leaves), xg)
+                    obj = replicated((y * ct).sum() + aux)
+                    gx, *gp = torch.autograd.grad(obj, [xg] + leaves)
+                    gp = [redistribute(g, t.placements)
+                          for g, t in zip(gp, leaves)]
+                out[(cfg.name, tuple(shape), impl)] = {
+                    "y": y.detach().full_tensor(), "aux": float(
+                        replicated(aux).to_local()),
+                    "gx": gx.full_tensor(),
+                    "gp": [g.full_tensor() for g in gp],
+                    "placements": [str(t.placements) for t in leaves],
                     "counts": coll.counts()}
     return out
 
@@ -319,7 +438,8 @@ def tp(make_mesh, rank, inputs):
 
 
 SCENARIOS = {f.__name__: f for f in (grad_compress, pipeline, moe,
-                                     checkpoint, layout, constrain, tp)}
+                                     moe_dtensor, checkpoint, layout,
+                                     constrain, tp)}
 
 
 def _main(scenario, rank, world, workdir):

@@ -2,7 +2,13 @@
 (``repro_torch.optim.grad_compress``) held to the reference
 (``tests/test_grad_compress.py``): ``quantize_int8`` bit for bit, and
 ``multipod_train_step`` under gloo on the CPU at world 2 (pod 2) and world
-4 (pod 2 x data 2), reduced tinyllama at 2 layers, batch 8 x 16 tokens, f32.
+4 (pod 2 x data 2) with replicated params, and at world 4 (pod 2 x model
+2) and world 8 (pod 2 x data 2 x model 2, the reference test's mesh) with
+the params as DTensors on each pod's (data, model) sub-mesh (``fsdp``
+placements) and AdamW state made from them, reduced tinyllama at 2
+layers, batch 8 x 16 tokens, f32. The reference's own test of that mesh
+aborts in XLA's SPMD partitioner on this jax, so the port is held to the
+reference's plain step and to its ``sync_grads`` arithmetic.
 
 Each rank records what ``sync_grads`` took and gave inside the step. Bounds:
   * every wire format's loss within 1e-3 of the reference's plain
@@ -23,9 +29,11 @@ Each rank records what ``sync_grads`` took and gave inside the step. Bounds:
     step moves an element by at most lr whatever its gradient, so two
     differ by at most 2 lr and the rounding of the stored value;
   * int8 hands only int8 tensors and their f32 scales to the all-gather,
-    and fewer bytes in all than ``none``.
+    and fewer bytes in all than ``none``; on the sub-mesh, each process
+    hands over its local shard (no full tensor crosses pods).
 """
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -52,7 +60,10 @@ from repro_torch.parallel import _collectives as coll
 from tests._torch_ranks import _tinyllama_run, run_ranks
 
 METHODS = ("none", "bf16", "int8")
-MESHES = {2: (2, 1, 1), 4: (2, 2, 1)}
+# replicated params at worlds 2 and 4; DTensor params on the pod sub-mesh
+# at (pod, data, model) 2x1x2 and 2x2x2
+MESHES = {2: (2, 1, 1), 4: (2, 2, 1), "2x1x2": (2, 1, 2),
+          "2x2x2": (2, 2, 2)}
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +81,12 @@ def runs(tmp_path_factory):
     model = Model(run)
     batch = SyntheticLMData(run.model, run.shape).batch(0)
     pp, _, pm = model.train_step(params, model.opt_init(params), batch)
-    ranks = {w: run_ranks("grad_compress", w,
+    # the DTensor launches (tensor parallelism on the CPU) take longer
+    # beside other launches under -n
+    ranks = {w: run_ranks("grad_compress", math.prod(shape),
                           tmp_path_factory.mktemp(f"gc{w}"),
-                          {"params": params, "mesh": shape})
+                          {"params": params, "mesh": shape},
+                          timeout=120.0 if shape[2] == 1 else 300.0)
              for w, shape in MESHES.items()}
     # the reference's gradients of each process's rows (pod-major over
     # (pod, data)), then of each pod's: their mean over data
@@ -81,9 +95,10 @@ def runs(tmp_path_factory):
         jm.cfg, jm.run, p, b, jm.rules)[0]))
     ref_pods = {}
     for w, (n_pod, n_data, _) in MESHES.items():
+        n = n_pod * n_data
         rows = [jax.tree.leaves(grad(jp, jax.tree.map(
-            lambda x: x.reshape((w, -1) + x.shape[1:])[r], jbatch)))
-            for r in range(w)]
+            lambda x: x.reshape((n, -1) + x.shape[1:])[r], jbatch)))
+            for r in range(n)]
         ref_pods[w] = [[np.mean([np.asarray(rows[p * n_data + d][i], np.float64)
                                  for d in range(n_data)], axis=0)
                         for i in range(len(rows[0]))] for p in range(n_pod)]
@@ -167,7 +182,7 @@ def test_sync_grads_on_one_rank():
     assert coll.counts()["calls"] == {"psum": 2, "all_gather": 6}
 
 
-@pytest.mark.parametrize("world", sorted(MESHES))
+@pytest.mark.parametrize("world", list(MESHES))
 @pytest.mark.parametrize("method", METHODS)
 def test_multipod_step_matches_the_plain_step(runs, world, method):
     ranks = runs["ranks"][world]
@@ -194,15 +209,20 @@ def test_multipod_step_matches_the_plain_step(runs, world, method):
             assert np.abs(g.numpy() - ref).max() <= \
                 1e-4 * np.abs(ref).max() + 1e-12
     # the synced gradients: the reference's arithmetic on those, on every
-    # process, and within the wire format's rounding of their mean
-    want = _ref_sync(pods, method)
+    # process (on the sub-mesh, on each shard: what crosses pods is the
+    # shard, so int8's scale is the shard's), and within the wire format's
+    # rounding of their mean
     rounding = _rounding(pods, method)
     mean = [torch.stack(leaves).mean(0) for leaves in zip(*pods)]
     for r in ranks:
-        synced = r[method]["syncs"][0]["synced"]
-        for g, ref in zip(synced, want[r["pod"]]):
+        same = [next(q[method]["syncs"][0]["pre_local"] for q in ranks
+                     if q["pod"] == p and q["shard"] == r["shard"])
+                for p in range(n_pod)]
+        want = _ref_sync(same, method)[r["pod"]]
+        for g, ref in zip(r[method]["syncs"][0]["synced_local"], want):
             assert np.abs(g.numpy() - ref).max() <= \
                 1e-6 * np.abs(ref).max() + 1e-12
+        synced = r[method]["syncs"][0]["synced"]
         for g, mu, b in zip(synced, mean, rounding):
             assert bool(((g - mu).abs() <= b * (1 + 1e-5)
                          + 1e-6 * mu.abs().max()).all())
@@ -219,19 +239,25 @@ def test_multipod_step_matches_the_plain_step(runs, world, method):
                                   runs["plain_p"], plain["lr"]) <= 1.0
 
 
-@pytest.mark.parametrize("world", sorted(MESHES))
+@pytest.mark.parametrize("world", list(MESHES))
 def test_int8_wire_is_int8_and_smaller(runs, world):
     ranks = runs["ranks"][world]
     params = runs["params"]
     n_leaves = len(_tree.tree_leaves(params))
-    n_elems = sum(p.numel() for p in _tree.tree_leaves(params))
     for r in ranks:
+        # this process's elements: every param's, or its local shards'
+        n_elems = r["local_elems"]
+        assert r["sharded"] == (MESHES[world][2] > 1)
+        if r["sharded"]:
+            assert n_elems < sum(p.numel() for p in _tree.tree_leaves(params))
         b = r["int8"]["counts"]["bytes"]
         gathered = {k: v for k, v in b.items() if k.startswith("all_gather")}
         assert gathered == {"all_gather/int8": n_elems,
                             "all_gather/float32": 4 * n_leaves}
-        # the rest is f32: the data mean and the metrics
-        assert set(b) - set(gathered) <= {"psum/float32"}
+        # the rest is f32: the data mean and the metrics (on the sub-mesh
+        # also the vocab-split loss's sums and maxima over model)
+        assert set(b) - set(gathered) <= {"psum/float32"} | (
+            {"pmax/float32"} if r["sharded"] else set())
         assert sum(b.values()) < sum(r["none"]["counts"]["bytes"].values())
         assert r["bf16"]["counts"]["bytes"]["all_gather/bfloat16"] == \
             2 * n_elems
@@ -239,3 +265,66 @@ def test_int8_wire_is_int8_and_smaller(runs, world):
     if world == 4:
         assert ranks[0]["none"]["counts"]["bytes"]["psum/float32"] >= \
             2 * 4 * n_elems
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_plain_params_on_a_model_axis_are_refused(method):
+    """Plain params on a mesh whose model axis is above 1 would compute
+    the same rows on each of its processes: the step refuses them before
+    any collective and names the DTensor layout."""
+    from repro_torch.optim.grad_compress import multipod_train_step
+    from repro_torch.parallel.sharding import Mesh
+    model = Model(_tinyllama_run(2))
+    params = model.init_params(torch.Generator().manual_seed(0))
+    step = multipod_train_step(model, Mesh({"pod": 2, "data": 1,
+                                            "model": 2}), method)
+    with pytest.raises(ValueError, match="without"):
+        step(params, model.opt_init(params), None)
+
+
+@pytest.mark.parametrize("world", list(MESHES))
+def test_opt_init_keeps_the_params_layout(runs, world):
+    """``model.opt_init`` of the params as placed: on the sub-mesh each
+    AdamW moment is a DTensor laid out as its param (this process's shard
+    only, the placements ``opt_shardings`` names) and the step counter a
+    replicated one; Adafactor's factored moments keep the param's split
+    of every dim they keep. Plain params give plain state."""
+    n_leaves = len(_tree.tree_leaves(runs["params"]))
+    for r in runs["ranks"][world]:
+        sharded, params = r["sharded"], r["param_layouts"]
+        adam = r["opt_layouts"]
+        assert len(adam) == 2 * n_leaves + 1
+        assert adam[:n_leaves] == params and adam[n_leaves:-1] == params
+        assert adam[-1][:3] == (sharded, (), ())
+        if sharded:
+            assert [a[3] for a in adam] == r["opt_sharding_placements"]
+            assert all("Replicate" in pl and "Shard" not in pl
+                       for pl in (adam[-1][3],))
+            assert any(p[2] != p[1] for p in params)
+        want = []
+        for dt, shape, local, _ in params:
+            if len(shape) >= 2:
+                want += [(dt, shape[:-1], local[:-1]),
+                         (dt, shape[:-2] + shape[-1:],
+                          local[:-2] + local[-1:])]
+            else:
+                want.append((dt, shape, local))
+        want.append((sharded, (), ()))
+        assert [a[:3] for a in r["adafactor_layouts"]] == want
+
+
+@pytest.mark.parametrize("world", list(MESHES))
+def test_pod_mesh_groups_are_the_pods(runs, world):
+    """``mesh.without("pod")``'s group over (data, model) sums over this
+    pod's processes only (every process made every pod's group alike:
+    one pod making its group alone crossed its rendezvous with the other
+    pod's and hung the expert all-to-all on the sub-mesh); a sub-mesh
+    made by hand refuses to make the group."""
+    n_pod, n_data, n_model = MESHES[world]
+    per_pod = n_data * n_model
+    for r, out in enumerate(runs["ranks"][world]):
+        pod = r // per_pod
+        assert out["pod"] == pod
+        assert out["pod_group_sum"] == sum(range(pod * per_pod,
+                                                 (pod + 1) * per_pod))
+        assert out["hand_sub_mesh_refused"]

@@ -12,6 +12,7 @@ PORT = ROOT / "src" / "repro_torch"
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["repro"] = None        # and so does the JAX package
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
@@ -47,9 +48,12 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
 def test_sources_import_no_jax_and_no_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 30
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+    assert len(files) > 30 and len(EXAMPLES) == 7
     bad = {str(f.relative_to(ROOT)): _FORBIDDEN.findall(f.read_text())
            for f in files}
     assert not {k: v for k, v in bad.items() if v}
@@ -108,3 +112,30 @@ def test_analysis_tools_run_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.split()[-1] == "ok"
+
+
+_EXAMPLES_WITHOUT_JAX = r"""
+import importlib, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["repro"] = None        # and so does the JAX package
+names = sys.argv[1:]
+for n in names:
+    importlib.import_module(n)
+leaked = sorted(m for m, mod in sys.modules.items() if mod is not None
+                and (m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_examples_import_without_jax_or_the_reference():
+    """Every ``examples/torch_*.py`` imports (its ``main`` not run) with
+    neither jax nor ``repro`` importable."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    names = [f"examples.{f.stem}" for f in EXAMPLES]
+    res = subprocess.run([sys.executable, "-c", _EXAMPLES_WITHOUT_JAX,
+                          *names], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[-1]) == 7

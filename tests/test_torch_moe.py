@@ -273,3 +273,65 @@ def test_manual_ep_without_a_mesh_is_moe():
     y1, a1 = M.moe_manual_ep(cfg, p, torch.from_numpy(x))
     y2, a2 = M.moe(cfg, p, torch.from_numpy(x))
     assert torch.equal(y1, y2) and torch.equal(a1, a2)
+
+
+# ---------------------------------------------------------------------------
+# The manual_ep and gshard dispatches on DTensors (tensor parallelism, FSDP
+# storage; the sort dispatch's are held by test_torch_tp.py): one launch
+# of 4 ranks, the (data, model) sub-mesh of (pod 2, data 1, model 2) and of
+# (pod 1, data 2, model 2); the layer's params placed by the fsdp rules,
+# the batch split over data. Held to the reference's ``moe`` (for
+# ``manual_ep``) and ``moe_gshard`` on the whole batch, forward and
+# gradient (jax.grad of sum(y * ct) + aux), at the file's 1e-5.
+# ---------------------------------------------------------------------------
+
+DT_MESHES = ((2, 1, 2), (1, 2, 2))
+
+
+@pytest.fixture(scope="module")
+def dt_runs(ep_runs, tmp_path_factory):
+    from tests._torch_ranks import run_ranks
+    cases, refs, _ = ep_runs
+    # DTensor dispatch on the CPU is slow beside other launches under -n
+    ranks = run_ranks("moe_dtensor", 4, tmp_path_factory.mktemp("moedt"),
+                      {"cases": list(cases.values()), "meshes": DT_MESHES},
+                      timeout=300.0)
+    return cases, refs, ranks
+
+
+@pytest.mark.parametrize("impl", ["manual_ep", "gshard"])
+@pytest.mark.parametrize("shape", DT_MESHES,
+                         ids=[f"data{s[1]}-model{s[2]}" for s in DT_MESHES])
+@pytest.mark.parametrize("arch", EP_ARCHS)
+def test_moe_on_dtensors_matches_the_reference(dt_runs, arch, shape, impl):
+    cases, refs, ranks = dt_runs
+    case = cases[arch]
+    cfg = case["cfg"]
+    jcfg, jp = refs[arch]
+    jfn = JM.moe_gshard if impl == "gshard" else JM.moe
+    x, ct = (jnp.asarray(case[k].numpy()) for k in ("x", "ct"))
+
+    def objective(p, x):
+        y, aux = jfn(jcfg, p, x, RULES)
+        return jnp.sum(y * ct) + aux, (y, aux)
+
+    (_, (jy, jaux)), (jgp, jgx) = jax.value_and_grad(
+        objective, argnums=(0, 1), has_aux=True)(jp, x)
+    n_ep = shape[1] * shape[2]
+    for r in ranks:
+        out = r[(cfg.name, shape, impl)]
+        np.testing.assert_allclose(out["y"].numpy(), np.asarray(jy),
+                                   atol=ATOL)
+        np.testing.assert_allclose(out["aux"], float(jaux), atol=ATOL)
+        np.testing.assert_allclose(out["gx"].numpy(), np.asarray(jgx),
+                                   atol=ATOL)
+        for (path, _), g, want in zip(_named(case["params"]), out["gp"],
+                                      jax.tree.leaves(jgp)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=ATOL, err_msg=path)
+        calls = out["counts"]["calls"]
+        # manual_ep: two exchanges each way, forward and backward; the
+        # other dispatches leave every collective to DTensor
+        exchanges = 4 if impl == "manual_ep" and cfg.n_experts % n_ep == 0 \
+            else 0
+        assert calls.get("all_to_all", 0) == exchanges, calls

@@ -9,8 +9,11 @@ Layouts, each on gloo processes on the CPU: world 2 (data 1, model 2,
 6 q heads over 3 kv heads (the model axis splits the q heads 3 and 3 and
 does not divide the kv heads, which stay whole, so each process gathers
 the kv head each of its q heads reads), falcon-mamba-7b (the scan's
-channels split over ``model``) and qwen2-moe-a2.7b (experts over
-``model``, groups over ``data``).
+channels split over ``model``), qwen2-moe-a2.7b (experts over
+``model``, groups over ``data``), minicpm3-4b (MLA: the absorbed decode
+against a latent cache split over sequence) and seamless-m4t-medium (the
+encoder-decoder: cross-attention and its ``xk``/``xv`` caches on
+DTensors).
 
 Bounds: the train step's loss rel 1e-5, grad_norm rel 1e-4, every
 updated param (gathered) within 1e-5; each gradient leaf, read as the
@@ -46,7 +49,8 @@ from tests._torch_ranks import run_ranks
 
 S, B = 16, 4
 ARCHS = {"tinyllama-1.1b": dict(n_heads=6, n_kv_heads=3),
-         "falcon-mamba-7b": {}, "qwen2-moe-a2.7b": {}}
+         "falcon-mamba-7b": {}, "qwen2-moe-a2.7b": {},
+         "minicpm3-4b": {}, "seamless-m4t-medium": {}}
 LAYOUTS = {2: [((1, 2), "dp_tp"), ((2, 1), "fsdp")], 4: [((2, 2), "fsdp")]}
 LOSS_RTOL, GNORM_RTOL, PARAM_ATOL, LOGITS_ATOL = 1e-5, 1e-4, 1e-5, 1e-4
 GRAD_RTOL = 1e-4        # per leaf, of the reference leaf's norm
