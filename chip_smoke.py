@@ -75,7 +75,13 @@ each phase's wall time printed:
      cross-attention's serve shapes also on the mma and f32 bodies,
      seamless's non-causal encoder, causal decoder and cross-attention
      (Sq != Skv), the reduced f32 train configs' shapes; the scan at each
-     hybrid path's shape;
+     hybrid path's shape; both past their one-launch limits, which no
+     config reaches but the reference runs (``WIDE_FA``, ``WIDE_SS``):
+     flash at dq 320, 576 and 264 (the mma body), dv 256, 320, 512 and
+     136 (one launch per 128 columns of v), 65537 batch rows or q heads
+     (two launches), bf16 on the body ``_body`` picks and f32; the scan
+     at N 17, 32, 64 (more lanes per channel), 320 (state groups) and
+     65537 batch rows, bf16 and f32;
   10a-e. serve internvl2-1b and minicpm3-4b at their full configs,
      qwen2-moe-a2.7b at 8 of 24 layers, jamba-v0.1-52b at 8 of 32
      layers and deepseek-v3-671b at 4
@@ -92,9 +98,13 @@ each phase's wall time printed:
   12. the six new families at their reduced configs, f32, card against
      CPU: prefill and 2 decode steps' logits within 1e-4, one train step
      at phase 9's bounds;
+  12b. the same for reduced tinyllama-1.1b with head_dim 320 and reduced
+     falcon-mamba-7b with ssm_state 32 (``WIDE_PARITY``), each launch
+     count as ``zoo_launches`` / ``train_launches`` predict (flash once
+     per 128 columns of v); their shape keys go to phase 13;
   13. every shape key (shape, dtype, causality, kv_len, body; the scan's
-     B/C row stride) that a main path (phases 3, 3b, 7, 8, 8b, 10, 11)
-     gave a kernel is held against the plain version: those the plan
+     B/C row stride) that a main path (phases 3, 3b, 7, 8, 8b, 10, 11,
+     12b) gave a kernel is held against the plain version: those the plan
      above did not check (a second serve batch's prompt length, a
      FrontDoor flush's rows) are checked here, and a key left unchecked
      fails the run;
@@ -180,7 +190,9 @@ each phase's wall time printed:
 Phase 2 also holds each kernel at the train shapes (flash B=2, S=2048,
 H=32, KV=4, d=64; the scan Bt=2, L=1024, di=8192, N=16; bf16), forward
 against its plain version and the ``autograd.Function``'s backward on the
-card against the same Function's on the CPU.
+card against the same Function's on the CPU, and times forward+backward
+with the inputs resident on the card (``fwd_bwd_ms``) and, beside it,
+copied from the host in each call (``fwd_bwd_host_copy_ms``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -339,6 +351,16 @@ def fa_bound_ms(B, Sq, Skv, H, KV, dq, dv, dtype, causal, kv_len):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def fa_passes(B, H, KV, dv):
+    """Launches of one flash call: the wrapper's passes (``_passes``)."""
+    from repro_torch.kernels.flash_attention import kernel
+    grid = kernel.MAX_GRID
+    G = H // KV
+    heads = (-(-KV // max(1, grid // G)) if G <= grid
+             else KV * -(-G // grid))
+    return -(-B // grid) * heads * -(-dv // kernel.MAX_DV)
+
+
 def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
             body=None, profiled=False, Skv=None):
     """Kernel vs plain version on one seeded input, both timed; returns
@@ -368,13 +390,15 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     tol = TOL[dtype_name]
+    passes = fa_passes(B, H, KV, dv)
     good = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol)
-                and kernel.launches_by_body[body] == before + 1)
+                and kernel.launches_by_body[body] == before + passes)
     CHECKED["flash_attention_fwd"].add(fa_key(
         B, S, Skv, H, KV, dq, dv, dtype_name, causal, kv_len, body))
     rec = {"shape": [B, S, H, KV, dq, dv], "dtype": dtype_name,
            "causal": causal, "kv_len": kv_len, "body": body,
-           "max_abs_err": err, "tol": tol, "ok": good}
+           "launches_per_call": passes, "max_abs_err": err, "tol": tol,
+           "ok": good}
     if Skv != S:
         rec["Skv"] = Skv
     rec["ms"] = cuda_ms(run)
@@ -383,6 +407,10 @@ def fa_case(B, S, H, KV, dq, dv, dtype_name, causal, kv_len=None,
     rec["library_ms"] = None
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     if kv_len is None:    # SDPA takes dv != dq (on its math backend)
+        from torch.nn.attention import SDPBackend
+        rec["library_backend"] = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, is_causal=causal, scale=scale,
+            enable_gqa=KV != H)).name
         rec["library_ms"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, scale=scale,
@@ -417,20 +445,28 @@ def backward_check(fn, host, cot, tol):
     """An ``autograd.Function``'s input cotangents on the card against the
     same Function's on the CPU, from the same host inputs ``host`` and
     output cotangents ``cot`` (``grads_agree`` at ``tol``); and the card's
-    forward+backward time (CUDA events)."""
+    forward+backward time (CUDA events), with the inputs and cotangents
+    resident on the card (``fwd_bwd_ms``) and, beside it, copied from the
+    host within each timed call (``fwd_bwd_host_copy_ms``)."""
     import torch
 
-    def grads(device):
-        args = [t.to(device).requires_grad_() for t in host]
+    def grads(args, cots):
+        args = [t.detach().requires_grad_() for t in args]
         out = fn(*args)
         outs = out if isinstance(out, tuple) else (out,)
-        return torch.autograd.grad(outs, args, [c.to(device) for c in cot])
-    card = [t.float().cpu() for t in grads("cuda")]
-    cpu = [t.float() for t in grads("cpu")]
+        return torch.autograd.grad(outs, args, cots)
+
+    def from_host(device):
+        return grads([t.to(device) for t in host], [c.to(device) for c in cot])
+    card = [t.float().cpu() for t in from_host("cuda")]
+    cpu = [t.float() for t in from_host("cpu")]
     err, ok = grads_agree(card, cpu, tol)
+    args, cots = [t.cuda() for t in host], [c.cuda() for c in cot]
     return {"bwd_max_abs_err": err, "bwd_tol": tol, "bwd_ok": ok,
-            "fwd_bwd_ms": cuda_ms(lambda: grads("cuda"), iters=3,
-                                  warmup=1)}
+            "fwd_bwd_ms": cuda_ms(lambda: grads(args, cots), iters=3,
+                                  warmup=1),
+            "fwd_bwd_host_copy_ms": cuda_ms(lambda: from_host("cuda"),
+                                            iters=3, warmup=1)}
 
 
 def fa_backward(B, S, H, KV, D, dtype_name, causal=True):
@@ -555,6 +591,7 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
     D = torch.randn((di,), generator=g, device="cuda")
     h0 = torch.randn((Bt, di, N), generator=g, device="cuda")
     args = (x, dt, A, B, C, D, h0)
+    before = kernel.launches
     y, h = kernel.selective_scan_fwd(*args)
     y_ref, h_ref = ref.selective_scan_ref(*args)
     torch.cuda.synchronize()
@@ -562,12 +599,15 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
     err = (y.float() - y_ref.float()).abs().max().item()
     h_err = (h - h_ref).abs().max().item()
     good = bool(torch.allclose(y.float(), y_ref.float(), atol=tol, rtol=tol)
-                and torch.allclose(h, h_ref, atol=H_TOL, rtol=0))
+                and torch.allclose(h, h_ref, atol=H_TOL, rtol=0)
+                and kernel.launches == before + -(-Bt // kernel.MAX_GRID))
     CHECKED["selective_scan_fwd"].add((Bt, L, di, N, dtype_name,
                                        B.stride(1)))
     rec = {"shape": [Bt, L, di, N], "dtype": dtype_name,
-           "strided_bc": bool(proj_width), "max_abs_err": err,
-           "h_max_abs_err": h_err, "tol": tol, "h_tol": H_TOL, "ok": good}
+           "strided_bc": bool(proj_width),
+           "lanes": kernel.lanes(dt_, N), "groups": kernel.groups(dt_, N),
+           "max_abs_err": err, "h_max_abs_err": h_err, "tol": tol,
+           "h_tol": H_TOL, "ok": good}
     # no single PyTorch call computes a selective scan
     rec["library_ms"] = None
     rec["bound_ms"], rec["bound_by"] = ss_bound_ms(Bt, L, di, N, dtype_name)
@@ -578,7 +618,7 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
         rec["plain_ms"] = cuda_ms(lambda: ref.selective_scan_ref(*args),
                                   iters=5)
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-        rec["profiler_ms"] = profiled_ms(run, "ss_fwd_kernel")
+        rec["profiler_ms"] = profiled_ms(run, "ss_fwd")    # + combine
         rec["host_us_per_call"] = host_us(run)
     return rec
 
@@ -1721,18 +1761,59 @@ ZOO_CUT = {
 }
 ZOO_SERVE_NEW = 8        # tokens per request on the zoo's serve paths
 ZOO_PARITY_TOL = 1e-4    # f32 logits card vs CPU (the CPU tests' serve bound)
+# Past the kernels' one-launch limits (flash dq 256 on the tma body and dv
+# 128, the scan's N 16 and 65535 batch rows), which no ARCH_IDS config
+# reaches but the reference runs. Phase 2b: flash (name, fa_case
+# arguments) in bf16 on the body ``_body`` picks and f32 (and mma where
+# tma picks); the scan (name, (Bt, L, di, N)) in bf16 and f32.
+WIDE_FA = (
+    ("wide dq 320 / dv 320, GQA 8:1", dict(B=2, S=463, H=16, KV=2, dq=320,
+                                           dv=320, causal=True)),
+    ("wide dq 192 / dv 256", dict(B=2, S=463, H=16, KV=16, dq=192, dv=256,
+                                  causal=True)),
+    ("absorbed MLA dq 576 / dv 512", dict(B=1, S=1024, H=16, KV=1, dq=576,
+                                          dv=512, causal=True)),
+    ("wide cross-attention 320 / 320", dict(B=2, S=384, Skv=512, H=16,
+                                            KV=16, dq=320, dv=320,
+                                            causal=False)),
+    ("odd dq 264 / dv 136", dict(B=1, S=64, H=2, KV=1, dq=264, dv=136,
+                                 causal=True)),
+    ("batch past the grid", dict(B=65537, S=4, H=2, KV=1, dq=16, dv=16,
+                                 causal=True)),
+    ("heads past the grid", dict(B=1, S=4, H=65537, KV=1, dq=16, dv=16,
+                                 causal=True)),
+)
+WIDE_SS = (
+    ("wide N 17", (2, 463, 8192, 17)), ("wide N 32", (2, 463, 8192, 32)),
+    ("wide N 64", (2, 463, 8192, 64)),
+    ("N 320, state groups", (2, 463, 2048, 320)),    # past one warp
+    ("ragged N 32", (1, 200, 4096, 32)),
+    ("batch past the grid", (65537, 3, 8, 20)),
+)
+# Phase 12b: reduced configs past the old limits, f32, card against CPU
+WIDE_PARITY = (("tinyllama-1.1b", {"head_dim": 320}),
+               ("falcon-mamba-7b", {"ssm_state": 32}))
+
+
+def fa_call_passes(cfg):
+    """Launches of each flash call of ``cfg``'s layers: one per 128
+    columns of its v head dim (``kernel._passes``; batches and heads here
+    are far inside the grid)."""
+    return fa_passes(1, 1, 1, cfg.v_head_dim if cfg.attn_type == "mla"
+                     else cfg.hdim)
 
 
 def zoo_launches(cfg):
     """Kernel launches of one forward over a sequence: flash attention
     once per attention layer (and per encoder layer and cross-attention
-    of an encoder-decoder), the selective scan once per Mamba layer."""
+    of an encoder-decoder) and per 128 columns of v, the selective scan
+    once per Mamba layer."""
     from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE
     n_attn = sum(cfg.block_type(i) in (ATTN_DENSE, ATTN_MOE)
                  for i in range(cfg.n_layers))
     fa = n_attn + (cfg.n_encoder_layers + cfg.n_layers
                    if cfg.is_encoder_decoder else 0)
-    return {"flash_attention_fwd": fa,
+    return {"flash_attention_fwd": fa * fa_call_passes(cfg),
             "selective_scan_fwd": cfg.n_layers - n_attn}
 
 
@@ -1742,7 +1823,8 @@ def train_launches(cfg, grad_accum=1):
     rematerialised."""
     per = zoo_launches(cfg)
     return {"flash_attention_fwd": grad_accum * (
-                2 * per["flash_attention_fwd"] + int(cfg.mtp)),
+                2 * per["flash_attention_fwd"]
+                + int(cfg.mtp) * fa_call_passes(cfg)),
             "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"]}
 
 
@@ -1760,7 +1842,8 @@ def phase_kernels_zoo(fa_cases, ss_cases):
     (MLA's dq != dv, up to 192; non-causal encoders and cross-attention
     with Sq != Skv; the reduced f32 train configs) on the body the wrapper
     picks, and MLA's and cross-attention's serve shapes on the mma.sync
-    and f32 bodies too; the scan at each hybrid path's shape."""
+    and f32 bodies too; the scan at each hybrid path's shape; both past
+    their one-launch limits (``WIDE_FA``, ``WIDE_SS``)."""
     print("== phase 2b: kernels at the model zoo's shapes on the card",
           flush=True)
     import torch
@@ -1795,10 +1878,12 @@ def phase_kernels_zoo(fa_cases, ss_cases):
           f"attention_ref (f32 2e-5, bf16 2e-2) and {len(ss_recs)} scan "
           f"cases with selective_scan_ref"
           + (f"; failing: {bad}" if bad else ""))
-    check(all(r["body"] == ("f32" if r["dtype"] == "float32" else "tma")
+    from repro_torch.kernels.flash_attention import kernel
+    check(all(r["body"] == ("f32" if r["dtype"] == "float32" else "tma"
+                            if r["shape"][4] <= kernel.MAX_DQ else "mma")
               for r in recs.values()),
-          "every bf16 zoo shape ran the tma body, every f32 one the f32 "
-          "body")
+          "every bf16 zoo shape ran the tma body (past dq 256 the mma "
+          "body), every f32 one the f32 body")
     return recs, ss_recs
 
 
@@ -1870,12 +1955,14 @@ def phase_serve_encdec(label, cfg, run, prompt, n_new):
     return launches
 
 
-def phase_zoo_parity(label, arch):
-    """One architecture at its reduced (CPU test) config, f32, from one
-    param tree: prefill and two decode steps' logits, and one train step,
-    on the card (f32 kernel bodies) against the CPU (plain versions)."""
-    print(f"== phase {label}: {arch} reduced, f32: card (kernels) vs CPU "
-          f"(plain)", flush=True)
+def phase_zoo_parity(label, arch, override=None):
+    """One architecture at its reduced (CPU test) config, with
+    ``override``'s fields, f32, from one param tree: prefill and two
+    decode steps' logits, and one train step, on the card (f32 kernel
+    bodies) against the CPU (plain versions). Returns the card's
+    launches."""
+    print(f"== phase {label}: {arch} reduced {override or ''}, f32: card "
+          f"(kernels) vs CPU (plain)", flush=True)
     import torch
     from repro_torch._tree import to_device
     from repro_torch.configs import get_config
@@ -1883,7 +1970,7 @@ def phase_zoo_parity(label, arch):
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models.model_zoo import Model
     S, B = 32, 2
-    cfg = reduced(get_config(arch))
+    cfg = reduced(get_config(arch), **(override or {}))
     model = Model(RunConfig(model=cfg, shape=ShapeProfile("d", S, B,
                                                           "decode"),
                             remat="none"))
@@ -1918,8 +2005,9 @@ def phase_zoo_parity(label, arch):
           f"the card's prefill launched {serve_launches} = {want}, its "
           f"decodes none")
     del dparams
-    train_step_parity(cfg, RunConfig(model=cfg, shape=ShapeProfile(
+    rec = train_step_parity(cfg, RunConfig(model=cfg, shape=ShapeProfile(
         "t", S, B, "train"), remat="full"), params, batch)
+    return {k: serve_launches[k] + rec["launches"][k] for k in serve_launches}
 
 
 def attn_calls(path, cfg, B, S, enc_len=None):
@@ -1972,6 +2060,13 @@ def zoo_plan():
         if zcfg.family == "hybrid":
             ss_zoo.append((path, (B, S, zcfg.d_inner, zcfg.ssm_state,
                                   zcfg.dt_rank_, zcfg.dtype)))
+    from repro_torch.kernels.flash_attention import kernel
+    for name, c in WIDE_FA:
+        fa_zoo.append((name, dict(c, dtype_name="bfloat16"),
+                       ("mma", "f32") if c["dq"] <= kernel.MAX_DQ
+                       else ("f32",)))
+    ss_zoo += [(f"{name} {dt}", (*shape, None, dt)) for name, shape in WIDE_SS
+               for dt in ("bfloat16", "float32")]
     # phase 18's local shards: each pod's rows, the heads or channels of
     # one of the two processes over model (tinyllama's q heads 16 of 32,
     # the kv heads they read 2 of 4; qwen2-moe's one row of data 2, heads
@@ -2027,6 +2122,13 @@ def zoo_paths(plan):
     for arch in ("internvl2-1b", "qwen2-moe-a2.7b", "minicpm3-4b",
                  "jamba-v0.1-52b", "seamless-m4t-medium", "deepseek-v3-671b"):
         timed(f"phase 12 ({arch})", phase_zoo_parity, "12", arch)
+    for arch, override in WIDE_PARITY:     # their shape keys go to phase 13
+        what = ", ".join(f"{k}={v}" for k, v in override.items())
+        path = f"parity {arch} reduced, {what}"
+        add_path(path, timed(
+            f"phase 12b ({arch}, {what})",
+            on_path(path, phase_zoo_parity, runtime=False), "12b", arch,
+            override))
     return by_path
 
 
@@ -3415,7 +3517,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape", "dtype", "profiler_ms",
             "host_us_per_call")
-    bwd_keys = ("bwd_max_abs_err", "bwd_tol", "fwd_bwd_ms")
+    bwd_keys = ("bwd_max_abs_err", "bwd_tol", "fwd_bwd_ms",
+                "fwd_bwd_host_copy_ms")
 
     def entry(name, source, replaces, by_path, rec, long_rec, train_rec,
               body):
@@ -3442,17 +3545,19 @@ def main() -> int:
               "src/repro/kernels/mamba_scan/kernel.py:54",
               by_path["selective_scan_fwd"], ss, ss_long, ss_tr,
               f"ss_fwd_kernel (bf16: state columns split over "
-              f"{counters['selective_scan_fwd'].lanes(torch.bfloat16)} "
-              f"lanes)")]}
+              f"{counters['selective_scan_fwd'].lanes(torch.bfloat16, 16)} "
+              f"lanes at N 16; ss_fwd_wide_kernel past it)")]}
     record["kernels"][0]["mma_body"] = fa["mma_body"]
     zoo_keys = keys + ("share_of_bound", "body", "library_profiler_ms")
     record["kernels"][0]["zoo_shapes"] = {
-        name: {**{k: r.get(k) for k in zoo_keys + ("Skv",)},
+        name: {**{k: r.get(k) for k in zoo_keys + (
+                   "Skv", "launches_per_call", "library_backend")},
                **{f"{b}_body": r[f"{b}_body"] for b in ("mma", "f32")
                   if f"{b}_body" in r}}
         for name, r in fa_zoo_recs.items()}
     record["kernels"][1]["zoo_shapes"] = {
-        name: {k: r.get(k) for k in keys + ("share_of_bound",)}
+        name: {k: r.get(k) for k in keys + ("share_of_bound", "lanes",
+                                            "groups")}
         for name, r in ss_zoo_recs.items()}
     for i, kern in enumerate(record["kernels"]):
         kern["unplanned_shapes"] = [

@@ -21,15 +21,22 @@
 // ~2.8 us of bf16 tensor-core work, so the bound is bytes. At a 2048-token
 // prompt the products (69 GFLOP, ~70 us) bound it.
 //
-// Head dims: dq up to 256 (MLA's 128 + 64 = 192 is the widest a model
-// here uses), dv up to 128. Each body is instantiated for a few dq and dv
-// bounds and pads up to the bound in shared memory, as the TPU kernel's
-// wrapper pads every head dim to a multiple of 128 lanes.
+// Head dims: any dq, dv up to 128 in one launch. Each body is
+// instantiated for a few dq and dv bounds and pads up to the bound in
+// shared memory, as the TPU kernel's wrapper pads every head dim to a
+// multiple of 128 lanes. The tma body takes dq up to 256 (MLA's 128 + 64
+// = 192 is the widest a model here uses). Above 256 the mma and f32 bodies
+// stream q and k through shared memory in head-dim slices of 256 and sum
+// the scores over the slices in f32 registers before the softmax: a whole
+// 64-row bf16 q tile at dq 576 is 72 KB, as is one 64-key k tile, so
+// wider tiles would not fit a block's 227 KB beside V. A dv above 128 is
+// the wrapper's: O = P V is independent per output column and P does not
+// depend on v, so it launches once per block of 128 columns of v and o.
 //
 // Three bodies; the wrapper (kernel.py `_body`) picks one from the shapes,
 // strides and dtype alone:
 //   * tma  — bf16 where TMA can address q, k, v and o (16-B aligned bases,
-//     strides multiples of 16 B, head dims multiples of 8). One
+//     strides multiples of 16 B, head dims multiples of 8, dq <= 256). One
 //     block per (128-row q tile, q head, batch): a producer warp loads the
 //     q tile once and streams 64-key K/V tiles into a two-stage ring by TMA
 //     (128-B swizzle, one 64-element box per head-dim slice, zero fill
@@ -44,8 +51,8 @@
 //     masked. The output goes through shared memory (swizzled) and a TMA
 //     store.
 //   * mma  — bf16 for what TMA cannot address (odd strides, head dims
-//     not a multiple of 8): mma.sync m16n8k16, four warps of 16 q rows,
-//     64-key tiles staged by plain loads.
+//     not a multiple of 8, dq above 256): mma.sync m16n8k16, four warps of
+//     16 q rows, 64-key tiles staged by plain loads.
 //   * f32  — the products on the CUDA cores (tensor-core TF32 would miss
 //     the reference's 2e-5 tolerance), 256 threads with a 4x4 register
 //     micro-tile for the scores and a quad of threads per output row; dq
@@ -62,8 +69,9 @@ namespace {
 constexpr int BQ = 64;          // q rows per block
 constexpr int BK = 64;          // keys per tile
 constexpr int THREADS = 256;
-constexpr int MAX_DQ = 256;     // q/k head dim limit
-constexpr int MAX_DV = 128;     // v head dim limit
+constexpr int MAX_DQ = 256;     // q/k head-dim columns staged at once
+constexpr int MAX_DV = 128;     // v head dim of one launch
+constexpr int MAX_GRID = 65535; // q heads (grid y) and batch rows (grid z)
 constexpr int ACC = MAX_DV / 4; // accumulator slots per thread
 constexpr float NEG_INF = -1e30f;
 
@@ -72,8 +80,12 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// f32: the products on the CUDA cores.
+// f32: the products on the CUDA cores. SLICED (dq > MAX_DQ): q and k pass
+// through shared memory in head-dim slices of MAX_DQ, q restaged with each
+// key tile, and the scores add up over the slices in registers in
+// head-dim order, as over one slice.
 // ---------------------------------------------------------------------------
+template <bool SLICED>
 __global__ void __launch_bounds__(THREADS)
 fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
@@ -81,7 +93,8 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   Strides sq, Strides sk, Strides sv, Strides so,
                   float scale, int causal, int kv_len) {
   extern __shared__ float smem[];
-  const int ldq = dq | 1;       // odd row stride: conflict-free column reads
+  const int dw = SLICED ? MAX_DQ : dq;  // head-dim columns staged at once
+  const int ldq = dw | 1;       // odd row stride: conflict-free column reads
   float* q_s = smem;                    // BQ x ldq
   float* k_s = q_s + BQ * ldq;          // BK x ldq
   float* v_s = k_s + BK * ldq;          // BK x dv
@@ -100,11 +113,15 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
 
-  for (int i = tid; i < BQ * dq; i += THREADS) {
-    int r = i / dq, d = i - r * dq;
-    int qr = q0 + r;
-    q_s[r * ldq + d] = qr < Sq ? qb[qr * sq.s + d] : 0.f;
-  }
+  // q's head-dim columns d0 .. d0 + w - 1 into q_s
+  auto stage_q = [&](int d0, int w) {
+    for (int i = tid; i < BQ * w; i += THREADS) {
+      int r = i / w, d = i - r * w;
+      int qr = q0 + r;
+      q_s[r * ldq + d] = qr < Sq ? qb[qr * sq.s + d0 + d] : 0.f;
+    }
+  };
+  if (!SLICED) stage_q(0, dq);
 
   // keys this tile needs: up to kv_len, and with causal up to its last row
   int kv_end = kv_len;
@@ -122,33 +139,40 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int m = 0; m < ACC; ++m) acc[m] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    for (int i = tid; i < BK * dq; i += THREADS) {
-      int c = i / dq, d = i - c * dq;
-      int kr = k0 + c;
-      k_s[c * ldq + d] = kr < Skv ? kb[kr * sk.s + d] : 0.f;
-    }
     for (int i = tid; i < BK * dv; i += THREADS) {
       int c = i / dv, d = i - c * dv;
       int kr = k0 + c;
       v_s[c * dv + d] = kr < Skv ? vb[kr * sv.s + d] : 0.f;
     }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dq; ++d) {
-      float qv[4], kv[4];
+    for (int d0 = 0; d0 < dq; d0 += dw) {   // once unless SLICED
+      const int w = min(dw, dq - d0);
+      if (SLICED) {
+        if (d0 > 0) __syncthreads();   // the previous slice is read
+        stage_q(d0, w);
+      }
+      for (int i = tid; i < BK * w; i += THREADS) {
+        int c = i / w, d = i - c * w;
+        int kr = k0 + c;
+        k_s[c * ldq + d] = kr < Skv ? kb[kr * sk.s + d0 + d] : 0.f;
+      }
+      __syncthreads();
+
+      for (int d = 0; d < w; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(r1 + i) * ldq + d];
+        for (int i = 0; i < 4; ++i) qv[i] = q_s[(r1 + i) * ldq + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = k_s[(c1 + 16 * j) * ldq + d];
+        for (int j = 0; j < 4; ++j) kv[j] = k_s[(c1 + 16 * j) * ldq + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -216,6 +240,9 @@ fa_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // before the second product, as the reference rounds p to v's dtype.
 // Head dims are zero-padded in shared memory to a multiple of 16 (q, k) or
 // 8 (v); DQM (64, 128 or 256) and DVM (64 or 128) size the register arrays.
+// SLICED (dq > DQM): q and k pass through shared memory in head-dim slices
+// of DQM, q restaged with each key tile and its fragments read from shared
+// memory, and S adds up over the slices in the f32 accumulators.
 // ---------------------------------------------------------------------------
 constexpr int MMA_WARPS = BQ / 16;
 constexpr int MMA_THREADS = 32 * MMA_WARPS;
@@ -238,7 +265,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int DQM, int DVM>
+template <int DQM, int DVM, bool SLICED>
 __global__ void __launch_bounds__(MMA_THREADS)
 fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -271,24 +298,34 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * sk.b + (h / G) * sk.h;
   const __nv_bfloat16* vb = v + b * sv.b + (h / G) * sv.h;
 
-  for (int i = tid; i < BQ * dqp; i += MMA_THREADS) {
-    int r = i / dqp, d = i - r * dqp;
-    int qr = q0 + r;
-    q_s[r * LD + d] = (qr < Sq && d < dq) ? qb[qr * sq.s + d] : zero;
-  }
-  __syncthreads();
   const int wr = warp * 16;
-  uint32_t qf[NK][4];
+  uint32_t qf[SLICED ? 1 : NK][4];
+  if constexpr (!SLICED) {
+    for (int i = tid; i < BQ * dqp; i += MMA_THREADS) {
+      int r = i / dqp, d = i - r * dqp;
+      int qr = q0 + r;
+      q_s[r * LD + d] = (qr < Sq && d < dq) ? qb[qr * sq.s + d] : zero;
+    }
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    if (kk * 16 < dqp) {
-      const __nv_bfloat16* base = q_s + (wr + g) * LD + kk * 16 + 2 * t;
-      qf[kk][0] = ld32(base);
-      qf[kk][1] = ld32(base + 8 * LD);
-      qf[kk][2] = ld32(base + 8);
-      qf[kk][3] = ld32(base + 8 * LD + 8);
+    for (int kk = 0; kk < NK; ++kk) {
+      if (kk * 16 < dqp) {
+        const __nv_bfloat16* base = q_s + (wr + g) * LD + kk * 16 + 2 * t;
+        qf[kk][0] = ld32(base);
+        qf[kk][1] = ld32(base + 8 * LD);
+        qf[kk][2] = ld32(base + 8);
+        qf[kk][3] = ld32(base + 8 * LD + 8);
+      }
     }
   }
+  // v^T of the key tile at k0 into vt_s
+  auto stage_vt = [&](int k0) {
+    for (int i = tid; i < BK * dvp; i += MMA_THREADS) {
+      int c = i / dvp, d = i - c * dvp;
+      int kr = k0 + c;
+      vt_s[d * LDV + c] = (kr < Skv && d < dv) ? vb[kr * sv.s + d] : zero;
+    }
+  };
 
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_end, min(q0 + BQ, Sq));
@@ -300,28 +337,63 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();   // the previous tile is no longer read
-    for (int i = tid; i < BK * dqp; i += MMA_THREADS) {
-      int c = i / dqp, d = i - c * dqp;
-      int kr = k0 + c;
-      k_s[c * LD + d] = (kr < Skv && d < dq) ? kb[kr * sk.s + d] : zero;
-    }
-    for (int i = tid; i < BK * dvp; i += MMA_THREADS) {
-      int c = i / dvp, d = i - c * dvp;
-      int kr = k0 + c;
-      vt_s[d * LDV + c] = (kr < Skv && d < dv) ? vb[kr * sv.s + d] : zero;
-    }
-    __syncthreads();
-
     float s[BK / 8][4];
+    if constexpr (!SLICED) {
+      __syncthreads();   // the previous tile is no longer read
+      for (int i = tid; i < BK * dqp; i += MMA_THREADS) {
+        int c = i / dqp, d = i - c * dqp;
+        int kr = k0 + c;
+        k_s[c * LD + d] = (kr < Skv && d < dq) ? kb[kr * sk.s + d] : zero;
+      }
+      stage_vt(k0);
+      __syncthreads();
+
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < BK / 8; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk) {
-        if (kk * 16 < dqp) {
-          const __nv_bfloat16* kp = k_s + (8 * j + g) * LD + kk * 16 + 2 * t;
-          mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+        for (int kk = 0; kk < NK; ++kk) {
+          if (kk * 16 < dqp) {
+            const __nv_bfloat16* kp = k_s + (8 * j + g) * LD + kk * 16
+                                      + 2 * t;
+            mma_bf16(s[j], qf[kk], ld32(kp), ld32(kp + 8));
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int d0 = 0; d0 < dq; d0 += DQM) {
+        const int w = min(DQM, dq - d0), wp = (w + 15) / 16 * 16;
+        __syncthreads();   // the previous slice or tile is no longer read
+        for (int i = tid; i < BQ * wp; i += MMA_THREADS) {
+          int r = i / wp, d = i - r * wp;
+          int qr = q0 + r;
+          q_s[r * LD + d] = (qr < Sq && d < w) ? qb[qr * sq.s + d0 + d]
+                                               : zero;
+        }
+        for (int i = tid; i < BK * wp; i += MMA_THREADS) {
+          int c = i / wp, d = i - c * wp;
+          int kr = k0 + c;
+          k_s[c * LD + d] = (kr < Skv && d < w) ? kb[kr * sk.s + d0 + d]
+                                                : zero;
+        }
+        if (d0 == 0) stage_vt(k0);
+        __syncthreads();
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          if (kk * 16 < wp) {
+            const __nv_bfloat16* base = q_s + (wr + g) * LD + kk * 16 + 2 * t;
+            const uint32_t qa[4] = {ld32(base), ld32(base + 8 * LD),
+                                    ld32(base + 8), ld32(base + 8 * LD + 8)};
+#pragma unroll
+            for (int j = 0; j < BK / 8; ++j) {
+              const __nv_bfloat16* kp = k_s + (8 * j + g) * LD + kk * 16
+                                        + 2 * t;
+              mma_bf16(s[j], qa, ld32(kp), ld32(kp + 8));
+            }
+          }
         }
       }
     }
@@ -402,7 +474,7 @@ fa_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DQM, int DVM>
+template <int DQM, int DVM, bool SLICED = false>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        int B, int H, int KV, int Sq, int Skv, int dq, int dv,
                        Strides sq, Strides sk, Strides sv, Strides so,
@@ -411,11 +483,11 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   const size_t smem = sizeof(__nv_bfloat16) *
       (size_t)((BQ + BK) * (DQM + 8) + DVM * (BK + 8));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_mma_kernel<DQM, DVM>,
+      fa_fwd_mma_kernel<DQM, DVM, SLICED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_mma_kernel<DQM, DVM><<<grid, MMA_THREADS, smem, stream>>>(
+  fa_fwd_mma_kernel<DQM, DVM, SLICED><<<grid, MMA_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, H / KV, Sq, Skv, dq,
       dv, sq, sk, sv, so, scale, causal, kv_len);
@@ -427,15 +499,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        float scale, int causal, int kv_len,
                        cudaStream_t stream) {
-  const int ldq = dq | 1;
+  const bool sliced = dq > MAX_DQ;
+  const int ldq = (sliced ? MAX_DQ : dq) | 1;
   size_t smem = sizeof(float) *
       (size_t)(BQ * ldq + BK * ldq + BK * dv + BQ * (BK + 1));
+  auto kern = sliced ? fa_fwd_f32_kernel<true> : fa_fwd_f32_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
       H / KV, Sq, Skv, dq, dv, sq, sk, sv, so, scale, causal, kv_len);
   return cudaGetLastError();
@@ -936,9 +1009,11 @@ cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // body: 0 = f32, 1 = mma (bf16), 2 = tma (bf16); the caller picks it (see
-// the note at the top). Strides are in elements. Returns the CUDA error
-// code of the launch (0 on success; cudaErrorInvalidValue if a tensor map
-// cannot be encoded).
+// the note at the top). Strides are in elements. One launch takes dv <=
+// MAX_DV, B and H <= MAX_GRID, and on the tma body dq <= MAX_DQ; the
+// wrapper cuts larger calls into such launches. Returns the CUDA error
+// code of the launch (0 on success; cudaErrorInvalidValue for arguments
+// past those limits or if a tensor map cannot be encoded).
 extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
                       void* o, int B, int H, int KV, int Sq, int Skv, int dq,
                       int dv, long long qb, long long qs, long long qh,
@@ -946,8 +1021,9 @@ extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
                       long long vs, long long vh, long long ob, long long os,
                       long long oh, float scale, int causal, int kv_len,
                       void* stream) {
-  if (dq < 1 || dv < 1 || dq > MAX_DQ || dv > MAX_DV || KV < 1
-      || H % KV != 0 || body < 0 || body > 2)
+  if (dq < 1 || dv < 1 || dv > MAX_DV || (body == 2 && dq > MAX_DQ)
+      || KV < 1 || H % KV != 0 || body < 0 || body > 2 || B > MAX_GRID
+      || H > MAX_GRID)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
   Strides sq{qb, qs, qh}, sk{kb, ks, kh}, sv{vb, vs, vh}, so{ob, os, oh};
@@ -961,7 +1037,8 @@ extern "C" int fa_fwd(int body, const void* q, const void* k, const void* v,
     err = (dq + 15) / 16 * 16 <= 64 && (dv + 7) / 8 * 8 <= 64
               ? launch_mma<64, 64>(FA_ARGS)
           : (dq + 15) / 16 * 16 <= 128 ? launch_mma<128, 128>(FA_ARGS)
-                                       : launch_mma<256, 128>(FA_ARGS);
+          : dq <= MAX_DQ ? launch_mma<256, 128>(FA_ARGS)
+                         : launch_mma<MAX_DQ, MAX_DV, true>(FA_ARGS);
   else if (dq <= 64)
     err = dv <= 64 ? launch_tma<64, 64>(FA_ARGS) : launch_tma<64, 128>(FA_ARGS);
   else if (dq <= 128)

@@ -152,12 +152,119 @@ def test_flash_attention_mla_head_dims_match_plain(B, S, H, dq, dv, causal,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dq,dv", [(264, 128), (192, 136)])
-def test_flash_attention_kernel_refuses_head_dims_past_its_limits(dq, dv):
+def test_flash_attention_kernel_takes_head_dims_past_one_pass(dq, dv):
+    """Past the old limits (dq 256, dv 128) the kernel returns what the
+    plain version does: dq streamed in slices, dv in column blocks, one
+    launch per block."""
     _card()
-    q, k = (torch.zeros((1, 8, 2, dq), device="cuda") for _ in range(2))
-    v = torch.zeros((1, 8, 2, dv), device="cuda")
-    with pytest.raises(ValueError, match="head dims"):
-        kernel.flash_attention_fwd(q, k, v, scale=1.0)
+    g = torch.Generator().manual_seed(dq + dv)
+    q, k = (torch.randn((1, 8, 2, dq), generator=g).cuda() for _ in range(2))
+    v = torch.randn((1, 8, 2, dv), generator=g).cuda()
+    before = kernel.launches
+    got = kernel.flash_attention_fwd(q, k, v, scale=dq ** -0.5)
+    want = ref.attention_ref(q, k, v, scale=dq ** -0.5)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + -(-dv // kernel.MAX_DV)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+# chip_smoke.py's phase 2b cases past the old limits: (B, Sq, Skv, H, KV,
+# dq, dv, causal) and the bodies each runs (f32; bf16 on the body
+# ``_body`` picks, and the others that can take it)
+FLASH_WIDE = [
+    ((2, 463, 463, 16, 2, 320, 320, True), ("f32", "mma")),
+    ((2, 463, 463, 16, 16, 192, 256, True), ("f32", "tma", "mma")),
+    ((1, 1024, 1024, 16, 1, 576, 512, True), ("f32", "mma")),   # MLA latent
+    ((2, 384, 512, 16, 16, 320, 320, False), ("f32", "mma")),
+    ((1, 64, 64, 2, 1, 264, 136, True), ("f32", "mma")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,body", [(s, b) for s, bodies in FLASH_WIDE
+                                        for b in bodies])
+def test_flash_attention_wide_head_dims_match_plain(shape, body):
+    """dq past 256 and dv past 128 on every body that takes them, one
+    launch per 128 columns of v: f32 2e-5, bf16 2e-2."""
+    _card()
+    B, Sq, Skv, H, KV, dq, dv, causal = shape
+    dtype = torch.float32 if body == "f32" else torch.bfloat16
+    g = torch.Generator().manual_seed(dq + dv + Sq)
+    q, k, v = (torch.randn(s, generator=g).to("cuda", dtype) for s in
+               ((B, Sq, H, dq), (B, Skv, KV, dq), (B, Skv, KV, dv)))
+    picked = kernel._body(q, k, v)
+    assert picked == ("f32" if body == "f32" else
+                      "tma" if dq <= kernel.MAX_DQ else "mma")
+    before = kernel.launches_by_body[body]
+    got = kernel._flash_attention_fwd(q, k, v, scale=dq ** -0.5,
+                                      causal=causal, body=body)
+    want = ref.attention_ref(q, k, v, scale=dq ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert kernel.launches_by_body[body] == before + -(-dv // 128)
+    assert got.shape == (B, Sq, H, dv)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_kv_len_mask(dtype):
+    """The kv_len mask past dq 256 and dv 128: every column block and
+    head-dim slice masks the same keys."""
+    _card()
+    g = torch.Generator().manual_seed(7)
+    q, k = (torch.randn((2, 128, 4, 320), generator=g).to("cuda", dtype)
+            for _ in range(2))
+    v = torch.randn((2, 128, 4, 200), generator=g).to("cuda", dtype)
+    got = kernel.flash_attention_fwd(q, k, v, scale=0.05, causal=False,
+                                     kv_len=70)
+    want = ref.attention_ref(q, k, v, scale=0.05, causal=False, kv_len=70)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV", [(65537, 2, 1), (1, 65537, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_past_the_grid_runs_in_passes(B, H, KV, dtype):
+    """More than 65535 batch rows or q heads: two launches, each within
+    the grid, together the plain version's output."""
+    _card()
+    g = torch.Generator().manual_seed(B + H)
+    q = torch.randn((B, 4, H, 16), generator=g).to("cuda", dtype)
+    k, v = (torch.randn((B, 4, KV, 16), generator=g).to("cuda", dtype)
+            for _ in range(2))
+    before = kernel.launches
+    got = kernel.flash_attention_fwd(q, k, v, scale=0.25)
+    want = ref.attention_ref(q, k, v, scale=0.25)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_copies_a_strided_head_dim(dtype):
+    """A last dim that is not contiguous is copied contiguous, not
+    refused."""
+    _card()
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((2, 64, 4, 128), generator=g).to("cuda", dtype)
+               [..., ::2] for _ in range(3))
+    assert q.stride(3) == 2
+    got = kernel.flash_attention_fwd(q, k, v, scale=0.125)
+    want = ref.attention_ref(q, k, v, scale=0.125)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 # ------------------------------------------------------------- selective scan
@@ -200,6 +307,67 @@ def test_selective_scan_kernel_matches_plain(Bt, L, di, N, dtype):
     torch.cuda.synchronize()
     assert sk.launches == before + 1
     assert y.dtype == dtype and h.dtype == torch.float32
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_ref.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=2e-4)
+
+
+# chip_smoke.py's phase 2b cases past N = 16: (Bt, L, di, N), with the
+# lanes per channel and state groups the kernel takes for bf16 and f32
+SCAN_WIDE = [
+    ((2, 463, 8192, 17), (4, 1), (8, 1)),
+    ((2, 463, 8192, 32), (4, 1), (8, 1)),
+    ((2, 463, 8192, 64), (8, 1), (16, 1)),
+    ((2, 463, 2048, 320), (32, 2), (32, 3)),     # past one warp
+    ((1, 200, 4096, 32), (4, 1), (8, 1)),        # ragged
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,bf16,f32", SCAN_WIDE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_wide_states_match_plain(shape, bf16, f32, dtype):
+    """N past 16: more lanes per channel, past a warp state groups whose
+    f32 partials are added before y is rounded once; the reference's
+    tolerances (y f32 2e-5 / bf16 2e-2, h_last 2e-4)."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ref as sref
+    Bt, L, di, N = shape
+    assert (sk.lanes(dtype, N), sk.groups(dtype, N)) == (
+        bf16 if dtype == torch.bfloat16 else f32)
+    args = _scan_inputs(Bt, L, di, N, dtype, seed=N + di)
+    before = sk.launches
+    y, h = sk.selective_scan_fwd(*args)
+    y_ref, h_ref = sref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               y_ref.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(h.cpu().numpy(), h_ref.cpu().numpy(),
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_past_the_grid_runs_in_passes(N, dtype):
+    """More than 65535 batch rows, x's channels strided and h0 a
+    transposed view: two launches on contiguous copies."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ref as sref
+    x, dt, A, B, C, D, h0 = _scan_inputs(65537, 3, 8, N, dtype, seed=N)
+    xs = torch.stack([x, x], -1)[..., 0]
+    h0t = h0.transpose(1, 2).contiguous().transpose(1, 2)
+    before = sk.launches
+    y, h = sk.selective_scan_fwd(xs, dt, A, B, C, D, h0t)
+    y_ref, h_ref = sref.selective_scan_ref(x, dt, A, B, C, D, h0)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 2
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                y_ref.float().cpu().numpy(),
                                atol=TOL[dtype], rtol=TOL[dtype])
@@ -332,6 +500,43 @@ def test_selective_scan_backward_matches_cpu(Bt, L, di, N, dtype):
     assert sk.launches == before + 1
     host = _grads(fn, args, cot, "cpu", dts)
     _assert_grads_close(card, host, TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_matches_cpu(dtype):
+    """Both Functions' backward past the old limits, card against CPU as
+    above: flash at dq 320 / dv 256 (GQA 2:1), the scan at N = 64."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+    g = torch.Generator().manual_seed(11)
+    qkv = [torch.randn(s, generator=g).to(dtype).float()
+           for s in ((1, 192, 4, 320), (1, 192, 2, 320), (1, 192, 2, 256))]
+    cot = [torch.randn((1, 192, 4, 256), generator=g)]
+
+    def fa(q, k, v):
+        return ops.flash_attention(q, k, v, scale=320 ** -0.5, causal=True)
+    before = kernel.launches
+    card = _grads(fa, qkv, cot, "cuda", [dtype] * 3)
+    assert kernel.launches == before + 2
+    _assert_grads_close(card, _grads(fa, qkv, cot, "cpu", [dtype] * 3),
+                        TOL[dtype])
+
+    Bt, L, di, N = 2, 128, 256, 64
+    args = [t.float().cpu() for t in _scan_inputs(Bt, L, di, N, dtype,
+                                                  seed=N)]
+    rng = np.random.default_rng(N)
+    cot = [torch.from_numpy(rng.normal(size=(Bt, L, di)).astype(np.float32)),
+           torch.from_numpy(rng.normal(size=(Bt, di, N)).astype(np.float32))]
+    dts = [dtype, None, None, dtype, dtype, None, None]
+
+    def ss(*a):
+        return sops.selective_scan(*a, chunk=512)
+    before = sk.launches
+    card = _grads(ss, args, cot, "cuda", dts)
+    assert sk.launches == before + 1
+    _assert_grads_close(card, _grads(ss, args, cot, "cpu", dts), TOL[dtype])
 
 
 # ---------------------------------------------------------------------------
