@@ -206,19 +206,23 @@ def _host_array(obj) -> Optional[Tuple[np.ndarray, str]]:
     return None
 
 
-def _strip(obj, buffers: List[memoryview]):
+def _strip(obj, buffers: List[memoryview], moved: Optional[list] = None):
+    """Skeleton of ``obj``; its array leaves' host bytes go to ``buffers``,
+    and ``moved[0]`` (when given) counts the bytes copied off a device."""
     got = _host_array(obj)
     if got is not None:
         a, tag = got
         buffers.append(_as_bytes_view(a))
+        if moved is not None and getattr(obj, "is_cpu", True) is False:
+            moved[0] += a.nbytes
         return _Buf(len(buffers) - 1, tag, tuple(a.shape))
     if isinstance(obj, dict):
-        return {k: _strip(v, buffers) for k, v in obj.items()}
+        return {k: _strip(v, buffers, moved) for k, v in obj.items()}
     if isinstance(obj, tuple):
-        vals = [_strip(v, buffers) for v in obj]
+        vals = [_strip(v, buffers, moved) for v in obj]
         return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
     if isinstance(obj, list):
-        return [_strip(v, buffers) for v in obj]
+        return [_strip(v, buffers, moved) for v in obj]
     return obj
 
 
@@ -447,16 +451,21 @@ def decode(data, store: Optional[ChannelStore] = None) -> Any:
 
 
 # --------------------------------------------------------------- manifests
-def manifest_of(value: Any, chunk_bytes: int = CHUNK_BYTES
-                ) -> Tuple[bytes, List[Tuple[bytes, int]]]:
-    """``(content_digest, [(chunk_digest, length), ...])`` of a value.
-
-    The chunk list is what a content-addressed store indexes (which
-    chunks are resident where); the content digest — skeleton pickle +
-    chunk digests — identifies the whole value for step memoization.
-    """
+def host_buffers(value: Any) -> Tuple[Any, List[memoryview], int]:
+    """``(skeleton, buffers, device_bytes)``: ``value``'s array leaves as
+    host byte views (a tensor on a device is copied to the host), its
+    skeleton, and how many of those bytes were on a device."""
     buffers: List[memoryview] = []
-    skeleton = _strip(value, buffers)
+    moved = [0]
+    skeleton = _strip(value, buffers, moved)
+    return skeleton, buffers, moved[0]
+
+
+def digest_buffers(skeleton: Any, buffers: List[memoryview],
+                   chunk_bytes: int = CHUNK_BYTES
+                   ) -> Tuple[bytes, List[Tuple[bytes, int]]]:
+    """The manifest of :func:`host_buffers`' output: SHA-256 over the
+    host bytes, no copy."""
     h = hashlib.sha256(pickle.dumps(skeleton,
                                     protocol=pickle.HIGHEST_PROTOCOL))
     chunks: List[Tuple[bytes, int]] = []
@@ -468,6 +477,19 @@ def manifest_of(value: Any, chunk_bytes: int = CHUNK_BYTES
             chunks.append((d, len(piece)))
             h.update(d)
     return h.digest()[:DIGEST_BYTES], chunks
+
+
+def manifest_of(value: Any, chunk_bytes: int = CHUNK_BYTES
+                ) -> Tuple[bytes, List[Tuple[bytes, int]]]:
+    """``(content_digest, [(chunk_digest, length), ...])`` of a value.
+
+    The chunk list is what a content-addressed store indexes (which
+    chunks are resident where); the content digest — skeleton pickle +
+    chunk digests — identifies the whole value for step memoization.
+    Every leaf is on the host before the first digest.
+    """
+    skeleton, buffers, _ = host_buffers(value)
+    return digest_buffers(skeleton, buffers, chunk_bytes)
 
 
 def content_digest(value: Any) -> bytes:

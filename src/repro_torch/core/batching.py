@@ -25,6 +25,14 @@ owes 1/k of it. Callers pass a ``charge(cost)`` callback per request
 (typically wired to ``FairShare.charge``) and the coalescer invokes it
 with ``fused_seconds / k`` after each flush.
 
+Telemetry: with an enabled tracer, every flush records a ``fused_batch``
+span, which carries the fused run's trace id when ``fuse_fn`` links it
+(:meth:`BatchCoalescer.link_run`), and every request in it two spans
+under a trace of its own: ``frontdoor.request``, from its submission to
+the moment its row (or error) is handed to its ticket, and its child
+``frontdoor.wait``, from its submission to the start of the bucket's
+``fuse_fn`` call, carrying the ``fused_batch`` span's id.
+
 Coalescing is only safe for steps that are *batchable*: deterministic,
 side-effect-free, same code fingerprint, and row-independent along the
 stacked axis (request i's output row must not depend on request j's
@@ -33,14 +41,21 @@ this contract.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Deque, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core.runtime import Event
+from repro_torch.obs.tracing import wall_of
+
+
+#: flush events a coalescer keeps (the newest)
+EVENTS_CAP = 4096
 
 
 class CoalesceError(RuntimeError):
@@ -105,8 +120,11 @@ class BatchCoalescer:
         self.metrics = metrics
         self.tracer = tracer
         self.name = name
-        self.events: List[Event] = []    # park/flush timeline (thread-safe
-                                         # appends; same Event type as runs)
+        # flush timeline (thread-safe appends; same Event type as runs),
+        # a ring: a long-lived front door keeps only the newest flushes
+        self.events: Deque[Event] = deque(maxlen=EVENTS_CAP)
+        self._request_ids = itertools.count(1)
+        self._run_trace: Optional[str] = None   # flush thread only
         self._cond = threading.Condition()
         self._buckets: Dict[Any, _Bucket] = {}
         self._closed = False
@@ -135,18 +153,15 @@ class BatchCoalescer:
             if b is None:
                 b = self._buckets[key] = _Bucket(key, time.perf_counter())
             b.tickets.append(t)
-            pending = len(b.tickets)
             self.coalesced += 1
             self._cond.notify_all()
-        if self.metrics is not None:
-            self.metrics.inc("frontdoor.coalesced")
-        info = {"key": str(key), "pending": pending}
-        if deadline_s is not None:
-            info["deadline_s"] = deadline_s
-        now = time.perf_counter()
-        self.events.append(Event("coalesce", "<batch>", "", now, info,
-                                 time.time()))
         return t
+
+    def link_run(self, trace_id: str):
+        """Called by ``fuse_fn`` on the flush thread: the trace id of the
+        run it submitted, which this flush's ``fused_batch`` span carries,
+        so each request's spans lead to the run's."""
+        self._run_trace = trace_id
 
     # ------------------------------------------------------------- flushing
     def _due_at(self, b: _Bucket) -> float:
@@ -196,22 +211,32 @@ class BatchCoalescer:
             else "window")
         waited = time.perf_counter() - b.created_t
         stacked = np.stack([np.asarray(t.value) for t in b.tickets], axis=0)
+        tr = self.tracer if self.tracer is not None \
+            and self.tracer.enabled else None
+        batch_id = 0
+        if tr is not None:
+            batch_id = tr.next_id()
+            self._run_trace = None
         t0 = time.perf_counter()
         err: Optional[BaseException] = None
         out = None
         try:
-            if self.tracer is not None and self.tracer.enabled:
-                # umbrella span: the fused dispatch (and everything the
-                # runtime nests under it) groups under one batch
-                with self.tracer.span("fused_batch", cat="serve",
-                                      track=f"coalescer:{self.name}",
-                                      key=str(b.key), batch=k):
+            if tr is not None:
+                # umbrella span: whatever fuse_fn opens on this thread
+                # nests under the batch
+                with tr.attach(("-", batch_id)):
                     out = self.fuse_fn(b.key, stacked, k)
             else:
                 out = self.fuse_fn(b.key, stacked, k)
         except BaseException as e:
             err = e
         seconds = time.perf_counter() - t0
+        if tr is not None:
+            attrs = {"error": repr(err)} if err is not None else {}
+            tr.add_span(self._run_trace or "-", "fused_batch", wall_of(t0),
+                        seconds, span_id=batch_id, cat="serve",
+                        track=f"coalescer:{self.name}", key=str(b.key),
+                        batch=k, **attrs)
         self._exec_ema = seconds if self._exec_ema == 0.0 \
             else 0.5 * seconds + 0.5 * self._exec_ema
         self.flushes += 1
@@ -225,6 +250,7 @@ class BatchCoalescer:
             {"key": str(b.key), "batch": k, "waited_s": waited,
              "reason": reason, "seconds": seconds}, time.time()))
         share = seconds / k
+        handed = [] if tr is not None else None   # when each row went back
         for i, t in enumerate(b.tickets):
             if t.charge is not None:
                 try:
@@ -241,6 +267,19 @@ class BatchCoalescer:
                     t._finish(error=CoalesceError(
                         f"fused batch over {b.key!r} returned no row "
                         f"{i} of {k}: {e!r}"))
+            if handed is not None:
+                handed.append(time.perf_counter())
+        if tr is not None:
+            track = f"requests:{self.name}"
+            for t, t_end in zip(b.tickets, handed):
+                trace = f"{self.name}.req{next(self._request_ids)}"
+                req = tr.add_span(trace, "frontdoor.request",
+                                  wall_of(t.submitted_t),
+                                  t_end - t.submitted_t, cat="serve",
+                                  track=track, key=str(b.key))
+                tr.add_span(trace, "frontdoor.wait", wall_of(t.submitted_t),
+                            t0 - t.submitted_t, parent_id=req, cat="serve",
+                            track=track, batch_span=batch_id)
 
     # --------------------------------------------------------- introspection
     def introspect(self) -> dict:

@@ -39,7 +39,11 @@ URI-keyed, versioned, multi-tier data store:
     that. A transport exposing ``transfer_ex`` (the fabric's
     RPCTransport) ships metadata only for fully-resident values;
     ``content_digest(uri)`` is the whole-value identity the runtime's
-    cross-run step memoization keys on,
+    cross-run step memoization keys on. Every hash of a value is one
+    ``mdss.hash`` span (attr ``uri``) in the owning runtime's tracer,
+    with two children: ``mdss.to_host``, the value's leaves copied to
+    host memory (``bytes`` those that were on a device), then
+    ``mdss.sha256``, the digests over them (``bytes`` those hashed),
   * **residency budgets** (per namespace, per tier): resident bytes are
     accounted incrementally on every copy install/replace/delete, and
     ``set_namespace_budget(ns, tier, max_bytes)`` bounds a namespace's
@@ -68,7 +72,8 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch._tree import to_device, tree_leaves
-from repro_torch.cloud.wire import manifest_of
+from repro_torch.cloud.wire import digest_buffers, host_buffers, manifest_of
+from repro_torch.obs.tracing import Tracer
 
 
 class MDSSTransferError(RuntimeError):
@@ -205,6 +210,9 @@ class MDSS:
             OrderedDict()
         self.manifest_cache_cap = 4096
         self.dedup_bytes_elided: int = 0   # transfer bytes chunk-dedup saved
+        # disabled by default; an owning runtime swaps in its live tracer,
+        # so hashing records its spans there
+        self.tracer = Tracer(enabled=False)
 
     # ------------------------------------------------------------------ api
     def put(self, uri: str, value, tier: str = "local",
@@ -221,7 +229,7 @@ class MDSS:
         if _manifest is None and self.chunk_dedup:
             # hash before taking the lock (re-entrant callers that
             # already hold it pay under the lock, same as before)
-            _manifest = manifest_of(value)
+            _manifest = self._hash(uri, value)
         with self._lock:
             e = self._entries.setdefault(uri, _Entry())
             if expect_version is not None and e.version != expect_version:
@@ -238,7 +246,7 @@ class MDSS:
         """Hash a batch's manifests with NO lock held (for put_many)."""
         if not self.chunk_dedup:
             return {}
-        return {uri: manifest_of(val) for uri, val in values.items()}
+        return {uri: self._hash(uri, val) for uri, val in values.items()}
 
     def put_many(self, values: Dict[str, Any], tier: str = "local",
                  expect_versions: Optional[Dict[str, int]] = None):
@@ -527,9 +535,24 @@ class MDSS:
         if got is not None:
             self._manifest_cache.move_to_end(key)
             return got
-        mani = manifest_of(value)
+        mani = self._hash(uri, value)
         self._cache_manifest(key, mani)
         return mani
+
+    def _hash(self, uri: str, value):
+        """``wire.manifest_of(value)``, the one place the store hashes: an
+        ``mdss.hash`` span split into the copy to the host and SHA-256,
+        when the tracer is on."""
+        tr = self.tracer
+        if not tr.enabled:
+            return manifest_of(value)
+        with tr.span("mdss.hash", cat="data", uri=uri):
+            with tr.span("mdss.to_host", cat="data") as hs:
+                skeleton, buffers, moved = host_buffers(value)
+                hs.set(bytes=moved)
+            with tr.span("mdss.sha256", cat="data",
+                         bytes=sum(b.nbytes for b in buffers)):
+                return digest_buffers(skeleton, buffers)
 
     def _cache_manifest(self, key, mani):
         self._manifest_cache[key] = mani
@@ -559,7 +582,7 @@ class MDSS:
                     todo.append((uri, version, value))
         if not todo:
             return
-        hashed = [(u, v, manifest_of(val)) for u, v, val in todo]
+        hashed = [(u, v, self._hash(u, val)) for u, v, val in todo]
         with self._lock:
             for u, v, mani in hashed:
                 if (u, v) not in self._manifest_cache:
@@ -984,7 +1007,8 @@ class NamespacedMDSS:
             if self.version(uri) != expect_version:
                 self.base.fenced_puts += 1
                 return None
-        mani = manifest_of(value) if self.base.chunk_dedup else None
+        mani = self.base._hash(self._wkey(uri), value) \
+            if self.base.chunk_dedup else None
         with self.base._lock:
             if self.version(uri) != expect_version:
                 self.base.fenced_puts += 1

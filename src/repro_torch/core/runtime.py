@@ -87,7 +87,7 @@ from repro_torch.core.scheduler import (POLICIES, FairShare, critical_path_lengt
 from repro_torch.core.tiers import default_tiers
 from repro_torch.core.workflow import Step, Workflow
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.tracing import Tracer, wall_now
+from repro_torch.obs.tracing import Tracer, wall_now, wall_of
 
 
 @dataclass
@@ -441,6 +441,7 @@ class EmeraldRuntime:
         self.metrics = metrics if metrics is not None else MetricsRegistry(
             enabled=telemetry)
         manager.tracer = self.tracer
+        self.mdss.tracer = self.tracer
         manager.register_metrics(self.metrics)
         self.mdss.register_metrics(self.metrics)
         self.default_policy = policy
@@ -756,20 +757,28 @@ class EmeraldRuntime:
                      prefetch, checkpointer, handle, sink, slo_ms,
                      deadline_perf) -> "_Run":
         completed: set = set()
-        for uri, val in (init_vars or {}).items():
-            if uri not in wf.variables:
-                wf.var(uri)
-            mdss.put(uri, val, tier="local")
-        if checkpointer is None and self.checkpoint_dir:
-            checkpointer = RunCheckpointer(
-                mdss, wf, self.checkpoint_dir,
-                ckpt_name=f"{ns}.{wf.name}" if ns else wf.name)
-        if resume and checkpointer is not None:
-            state = checkpointer._load_checkpoint()
-            if state is not None:
-                completed = set(state["completed"])
-                for uri, val in state["vars"].items():
-                    mdss.put(uri, val, tier="local")
+        # one trace per run: the root "run" span's identity is allocated
+        # now (so every child can parent to it) and recorded at finalize;
+        # the run's clock starts here, so it spans the "submit" phase:
+        # the input and resumed variables' puts (MDSS hashes each)
+        t_submit = time.perf_counter()
+        root_ctx = (run_id, self.tracer.next_id()) \
+            if self.tracer.enabled else None
+        with self.tracer.span("submit", cat="data", parent=root_ctx):
+            for uri, val in (init_vars or {}).items():
+                if uri not in wf.variables:
+                    wf.var(uri)
+                mdss.put(uri, val, tier="local")
+            if checkpointer is None and self.checkpoint_dir:
+                checkpointer = RunCheckpointer(
+                    mdss, wf, self.checkpoint_dir,
+                    ckpt_name=f"{ns}.{wf.name}" if ns else wf.name)
+            if resume and checkpointer is not None:
+                state = checkpointer._load_checkpoint()
+                if state is not None:
+                    completed = set(state["completed"])
+                    for uri, val in state["vars"].items():
+                        mdss.put(uri, val, tier="local")
         if checkpointer is not None and checkpointer.checkpoint_dir:
             # seed from EVERY resident variable (init/resume vars and state
             # carried over from previous runs in this namespace): nothing
@@ -799,10 +808,6 @@ class EmeraldRuntime:
             run_policy.set_priorities(critical_path_lengths(
                 wf, self.manager.cost_model, self.cloud_tier, succ=succs))
 
-        # one trace per run: the root "run" span's identity is allocated
-        # now (so every child can parent to it) and recorded at finalize
-        root_ctx = (run_id, self.tracer.next_id()) \
-            if self.tracer.enabled else None
         run = _Run(run_id=run_id, ns=ns, handle=handle, wf=wf, steps=steps,
                    succs=succs, indeg=indeg, order_idx=order_idx,
                    completed=completed, mdss=mdss, policy=run_policy,
@@ -812,7 +817,8 @@ class EmeraldRuntime:
                    if speculate_after is _AUTO else speculate_after,
                    prefetch=self.prefetch if prefetch is None else prefetch,
                    events=sink, root_ctx=root_ctx, slo_ms=slo_ms,
-                   deadline_perf=deadline_perf)
+                   deadline_perf=deadline_perf, epoch_perf=t_submit,
+                   epoch_wall=wall_of(t_submit))
         handle.epoch_wall = run.epoch_wall
         if checkpointer is not None:
             checkpointer._emit = run.emit

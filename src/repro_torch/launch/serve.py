@@ -75,7 +75,9 @@ class Server:
         """``params`` live on the host (the ``local`` tier). ``device`` is
         the serving tier's device: ``cuda:0`` by default (raises without a
         card), ``"cpu"`` to serve on the host. Ignored with ``runtime``,
-        whose tiers already name their devices."""
+        whose tiers already name their devices; a runtime built with
+        ``EmeraldRuntime(..., telemetry=False)`` serves with its spans and
+        counters off."""
         self.run = run
         self.model = Model(run)
         self.policy = policy
@@ -206,7 +208,10 @@ class FrontDoor:
     Client threads call ``decode(tokens, deadline_s=...)`` and block on
     the returned ticket; a request's deadline can flush the bucket
     early, and ``slo_ms`` arms the runtime's preemption guard for the
-    fused runs themselves.
+    fused runs themselves. Telemetry follows the runtime: with its tracer
+    on, each request's ``frontdoor.request`` / ``frontdoor.wait`` spans
+    lead to its flush's ``fused_batch`` span, which carries the fused
+    run's trace id.
     """
 
     def __init__(self, runtime: EmeraldRuntime, decode_fn, *,
@@ -234,9 +239,10 @@ class FrontDoor:
         runtime.attach_coalescer(self.coalescer)
 
     def _fuse(self, key, stacked: np.ndarray, k: int) -> np.ndarray:
-        out = self._ex.submit({"tokens": stacked}, fetch=("logits",),
-                              priority=INTERACTIVE).result()
-        return np.asarray(out["logits"])
+        handle = self._ex.submit({"tokens": stacked}, fetch=("logits",),
+                                 priority=INTERACTIVE)
+        self.coalescer.link_run(handle.trace_id)
+        return np.asarray(handle.result()["logits"])
 
     # ------------------------------------------------------------------ api
     def decode(self, tokens, *, deadline_s: Optional[float] = None,

@@ -46,7 +46,9 @@ class Trainer:
     are the initial params on the host; by default they are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the cloud tier's device
     (the card draws a full model in well under a second) and placed on
-    the host. Tests hand in params converted from the reference."""
+    the host. Tests hand in params converted from the reference.
+    ``telemetry=False`` builds the runtime with its spans and counters
+    off (MDSS's included)."""
     run: RunConfig
     policy: str = "annotate"
     ckpt_dir: Optional[str] = None
@@ -55,6 +57,7 @@ class Trainer:
     async_ckpt: bool = True
     device: Optional[str] = None
     params: Optional[Any] = None
+    telemetry: bool = True
 
     def __post_init__(self):
         self.model = Model(self.run)
@@ -86,7 +89,7 @@ class Trainer:
         # one long-lived runtime across the whole fit loop: lanes and the
         # driver are set up once, not once per training step
         self.runtime = EmeraldRuntime(self.manager, policy=self.policy,
-                                      name="train")
+                                      name="train", telemetry=self.telemetry)
         self.executor = EmeraldExecutor(
             partition(wf), self.manager, policy=self.policy,
             runtime=self.runtime)

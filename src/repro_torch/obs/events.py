@@ -89,11 +89,6 @@ EVENT_SCHEMA: Dict[str, EventSchema] = {e.kind: e for e in [
        optional=("slack_s", "depth"),
        doc="A parked run was admitted by the drain loop (oldest deadline "
            "first) once residency and lane capacity freed."),
-    _s("coalesce",
-       required=("key", "pending"),
-       optional=("deadline_s",),
-       doc="A decode request joined a BatchCoalescer bucket and is "
-           "waiting for the flush window."),
     _s("flush",
        required=("key", "batch"),
        optional=("waited_s", "reason", "seconds"),

@@ -229,7 +229,6 @@ METRIC_CATALOG: Dict[str, str] = {
     "frontdoor.queue_full": "Submissions refused because the queue was full.",
     "frontdoor.park_wait_s": "Seconds parked submissions waited for admission.",
     "frontdoor.preemptions": "SLO-driven preemptions of in-flight batch work.",
-    "frontdoor.coalesced": "Decode requests absorbed into a fused batch.",
     "frontdoor.flushes": "Coalescer buckets flushed as one fused task.",
     "frontdoor.fused_batch": "Request count of fused batches (histogram).",
     "mdss.resident_bytes": "Bytes resident across tiers.",

@@ -29,6 +29,14 @@ lane/worker/tenant, ``X`` (complete) events carrying
 even when time-nesting is ambiguous, and ``M`` metadata events naming
 every process and track.
 
+The profiler's clock: while a ``torch.profiler`` records, each span
+opened with :meth:`Tracer.span` also opens a
+``torch.profiler.record_function`` of its name on the same thread, so
+the program's phases appear as user annotations in the profiler's own
+trace, on the device's timeline. torch is looked up in ``sys.modules``,
+never imported; with no profiler recording that costs one lookup and one
+attribute read per span.
+
 Overhead: a disabled tracer's ``span()`` returns a shared no-op context
 manager — one attribute load and one ``if`` on the hot path. An enabled
 tracer appends finished spans to a bounded ring (oldest spans drop
@@ -40,6 +48,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -93,15 +102,29 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _profiler_annotation(name: str):
+    """An open ``record_function(name)`` while a ``torch.profiler``
+    records, else None. The profiler's module-wide flag, not
+    ``torch.autograd._profiler_enabled()``: that one is per thread, and
+    reads False on every thread of a profiler that records them all."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not getattr(prof, "_is_profiler_enabled", False):
+        return None
+    rf = prof.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _ActiveSpan:
     """An open span: records on exit, exposes ``ctx`` for propagation."""
-    __slots__ = ("tracer", "span", "_t0_perf", "_stack")
+    __slots__ = ("tracer", "span", "_t0_perf", "_stack", "_rf")
 
     def __init__(self, tracer: "Tracer", span: Span, stack: list):
         self.tracer = tracer
         self.span = span
         self._stack = stack
         self._t0_perf = 0.0
+        self._rf = None
 
     @property
     def ctx(self) -> SpanCtx:
@@ -111,6 +134,7 @@ class _ActiveSpan:
         self.span.attrs.update(attrs)
 
     def __enter__(self):
+        self._rf = _profiler_annotation(self.span.name)
         self._t0_perf = time.perf_counter()
         self.span.t0_wall = wall_of(self._t0_perf)
         self._stack.append(self.ctx)
@@ -118,6 +142,8 @@ class _ActiveSpan:
 
     def __exit__(self, exc_type, exc, tb):
         self.span.dur_s = time.perf_counter() - self._t0_perf
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         if exc_type is not None:
             self.span.attrs["error"] = repr(exc)
         stack = self._stack
