@@ -698,6 +698,146 @@ def phase_kernels(fa_shapes, ss_shapes, dt_rank):
     return fa, ss
 
 
+# ---------------------------------------------------------- SHA-256 of chunks
+# SHA-256's integer operations per 64-byte block in the card's
+# three-input instructions (SHF rotations, LOP3, IADD3): 64 rounds of 14,
+# 48 schedule words of 10, 8 adds into the state, 16 byte swaps (the
+# count is derived in sha256_chunks.cu)
+SHA_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8 + 16
+# 32-bit integer add, logic and funnel shift: 64 lanes per SM per clock
+# (the ALU pipe); adds as IMAD on the FMA pipe could at most double it
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# a warp issues at most one instruction a cycle: the least time of one
+# chunk's chain of blocks, which one thread hashes in order
+SHA_WARP_INSTR_PER_S = 1.98e9
+SHA_HOST_REPS = 5                       # host-path timings of small values
+
+
+def sha_bound_ms(nbytes):
+    """(least ms, what bounds it) for the kernel over ``nbytes``: the bytes
+    at 3.35 TB/s or the int32 operations over 132 SMs x 64 lanes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nbytes / 64 * SHA_OPS_PER_BLOCK / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card_hashes(*values):
+    """How many of ``values`` MDSS hashes on the card, one launch each:
+    those whose tensor leaves hold at least ``mdss.CARD_HASH_CHUNKS``
+    chunks of ``wire.CHUNK_BYTES`` (counted here from their shapes, apart
+    from MDSS's own rule; every leaf of such a value is on the card)."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.cloud.wire import CHUNK_BYTES
+    from repro_torch.core.mdss import CARD_HASH_CHUNKS
+    return sum(sum(-(-t.nbytes // CHUNK_BYTES) for t in tree_leaves(v)
+                   if isinstance(t, torch.Tensor)) >= CARD_HASH_CHUNKS
+               for v in values)
+
+
+def train_hashes(run):
+    """SHA-256 launches of one Trainer step of ``run``: its install hashes
+    the new params and AdamW state (and the scalar metrics, never on the
+    card)."""
+    from repro_torch.models.model_zoo import Model
+    model = Model(run)
+    return card_hashes(model.abstract_params(), model.abstract_opt_state())
+
+
+def sha_train_state():
+    """falcon-mamba-7b's train state at the benchmark's 4 of 64 layers, on
+    the card: bf16 params and AdamW's f32 moments (normals; the step count
+    zero)."""
+    import torch
+    from repro_torch import _tree
+    from repro_torch.models.model_zoo import Model
+    _, run = train_run("falcon-mamba-7b", 2048, 8, n_layers=4)
+    model = Model(run)
+    def fill(t):
+        out = torch.empty(t.shape, dtype=t.dtype, device="cuda")
+        return out.normal_() if out.is_floating_point() else out.zero_()
+    return {"params": _tree.tree_map(fill, model.abstract_params()),
+            "opt_state": _tree.tree_map(fill, model.abstract_opt_state())}
+
+
+def sha_case(name, value, reps):
+    """The kernel over ``value``'s leaves (one launch) against the host
+    path (copy off the card, then hashlib): digests equal; the kernel's
+    device time, the wrapper's wall time per call, and the host path's."""
+    import statistics
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.cloud import wire
+    from repro_torch.kernels.sha256 import kernel as sha
+    leaves = [t for t in tree_leaves(value) if isinstance(t, torch.Tensor)]
+    nbytes = sum(t.nbytes for t in leaves)
+    chunks = sum(-(-t.nbytes // wire.CHUNK_BYTES) for t in leaves)
+    l0 = sha.launches
+    got = sha.chunk_digests(leaves)
+    check(sha.launches == l0 + 1, f"{name}: one launch for {len(leaves)} "
+          f"leaves, {chunks} chunks")
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        skeleton, buffers, moved = wire.host_buffers(leaves)
+        t1 = time.perf_counter()
+        _, want = wire.digest_buffers(skeleton, buffers)
+        host.append((t1 - t0, time.perf_counter() - t1))
+        del skeleton, buffers
+    check(moved == nbytes and [d for ds in got for d in ds]
+          == [d for d, _ in want],
+          f"{name}: {chunks} chunk digests equal hashlib's")
+    call = []
+    for _ in range(max(reps, 3)):
+        t0 = time.perf_counter()
+        sha.chunk_digests(leaves)
+        call.append(time.perf_counter() - t0)
+    bound, by = sha_bound_ms(nbytes)
+    longest = max(t.nbytes for t in leaves)
+    chain = ((min(longest, wire.CHUNK_BYTES) // 64 + 1) * SHA_OPS_PER_BLOCK
+             / SHA_WARP_INSTR_PER_S * 1e3)
+    copy_s = statistics.median(h[0] for h in host)
+    hash_s = statistics.median(h[1] for h in host)
+    rec = {"case": name, "bytes": nbytes, "chunks": chunks,
+           "leaves": len(leaves),
+           "profiler_ms": profiled_ms(lambda: sha.chunk_digests(leaves),
+                                      "sha256_chunks", iters=max(reps, 3)),
+           "call_ms": statistics.median(call) * 1e3,
+           "bound_ms": bound, "bound_by": by, "chain_bound_ms": chain,
+           "host_copy_ms": copy_s * 1e3, "host_hashlib_ms": hash_s * 1e3,
+           "host_ms": (copy_s + hash_s) * 1e3}
+    if rec["profiler_ms"]:
+        rec["share_of_bound"] = bound / rec["profiler_ms"]
+    print(f"  sha256 {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def phase_sha256():
+    """The SHA-256 kernel at 1, 2 and 64 chunks and at the train cell's
+    two values, against the host path MDSS takes below
+    ``CARD_HASH_CHUNKS``; the crossover that sets it."""
+    print("== phase 2c: SHA-256 of chunks on the card against the host",
+          flush=True)
+    import torch
+    from repro_torch.cloud import wire
+    from repro_torch.core import mdss
+    g = torch.Generator(device="cuda").manual_seed(0)
+    recs = [sha_case(f"{n} chunks", torch.randint(
+        0, 256, (n * wire.CHUNK_BYTES,), dtype=torch.uint8, device="cuda",
+        generator=g), SHA_HOST_REPS) for n in (1, 2, 64)]
+    state = sha_train_state()
+    for key in ("params", "opt_state"):
+        recs.append(sha_case(f"train {key}", state[key], 1))
+    del state
+    per_chunk = recs[2]["host_ms"] / recs[2]["chunks"]
+    crossover = recs[0]["call_ms"] / per_chunk
+    out = {"cases": recs, "host_ms_per_chunk": per_chunk,
+           "crossover_chunks": crossover,
+           "CARD_HASH_CHUNKS": mdss.CARD_HASH_CHUNKS}
+    print(f"  sha256 crossover {json.dumps(out)}", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------- serve
 def serve_config(arch, batch=4, n_layers=None):
     from repro_torch.configs import get_config
@@ -741,7 +881,9 @@ def init_on_card(model, seed):
 def kernel_counters():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.mamba_scan import kernel as ss
-    return {"flash_attention_fwd": fa, "selective_scan_fwd": ss}
+    from repro_torch.kernels.sha256 import kernel as sha
+    return {"flash_attention_fwd": fa, "selective_scan_fwd": ss,
+            "sha256_chunks": sha}
 
 
 def reset_counters():
@@ -933,8 +1075,10 @@ def phase_launched_shapes():
 
 def phase_serve(label, cfg, run, reqs, want, cut="full config"):
     """Serve ``reqs`` through the Server on the card; checks that every
-    prefill launched each kernel ``want[name]`` times (0 where absent)
-    and every decode none, all flash launches on the tma body."""
+    prefill launched each model kernel ``want[name]`` times (0 where
+    absent) and every decode none, all flash launches on the tma body,
+    and that every prefill and decode hashed each of its outputs that
+    ``card_hashes`` counts (the cache, the logits) once on the card."""
     print(f"== phase {label}: serve {cfg.name} ({cut}) through the "
           f"Emerald runtime on the card", flush=True)
     import torch
@@ -1007,7 +1151,14 @@ def phase_serve(label, cfg, run, reqs, want, cut="full config"):
                   for l in logits_seen),
           f"{len(logits_seen)} fetched logits are finite, ({B}, "
           f"{cfg.vocab_padded})")
+    steps = srv.stats["prefills"] + srv.stats["decode_calls"]
+    hashed = card_hashes(cache, logits_seen[0])
     for name, n in launches.items():
+        if name == "sha256_chunks":
+            total = hashed * steps
+            check(n == total, f"{name} launches {n} = {total} ({hashed} "
+                  f"of each step's outputs x {steps} prefills and decodes)")
+            continue
         per = want.get(name, 0)
         total = per * srv.stats["prefills"]
         check(n == total, f"{name} launches {n} = {total}"
@@ -1513,9 +1664,11 @@ def phase_frontdoor(cfg, run):
           and got.shape == (FD_REQUESTS, cfg.vocab_padded),
           f"rows finite, ({FD_REQUESTS}, {cfg.vocab_padded})")
     check(flushes >= 2 and launches["flash_attention_fwd"]
-          == cfg.n_layers * flushes and launches["selective_scan_fwd"] == 0,
+          == cfg.n_layers * flushes and launches["selective_scan_fwd"] == 0
+          and launches["sha256_chunks"] == 0,
           f"flash_attention_fwd launches {launches['flash_attention_fwd']} "
-          f"= {cfg.n_layers} layers x {flushes} flushes; no scan")
+          f"= {cfg.n_layers} layers x {flushes} flushes; no scan; no "
+          f"SHA-256 (each flush's values under CARD_HASH_CHUNKS)")
     check(max(rel) <= FD_REL_TOL,
           f"every row against its window alone: rel err {max(rel):.3e} <= "
           f"{FD_REL_TOL}")
@@ -1814,18 +1967,21 @@ def zoo_launches(cfg):
     fa = n_attn + (cfg.n_encoder_layers + cfg.n_layers
                    if cfg.is_encoder_decoder else 0)
     return {"flash_attention_fwd": fa * fa_call_passes(cfg),
-            "selective_scan_fwd": cfg.n_layers - n_attn}
+            "selective_scan_fwd": cfg.n_layers - n_attn,
+            "sha256_chunks": 0}
 
 
 def train_launches(cfg, grad_accum=1):
     """Launches of one train step under remat "full": every block's
     forward runs again in the backward; the MTP head's block is not
-    rematerialised."""
+    rematerialised. The step hashes nothing: a Trainer's install adds
+    ``train_hashes``."""
     per = zoo_launches(cfg)
     return {"flash_attention_fwd": grad_accum * (
                 2 * per["flash_attention_fwd"]
                 + int(cfg.mtp) * fa_call_passes(cfg)),
-            "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"]}
+            "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"],
+            "sha256_chunks": 0}
 
 
 def pipeline_launches(cfg, n_micro, n_stages):
@@ -2117,7 +2273,8 @@ def zoo_paths(plan):
         path = f"train {zcfg.name}"
         add_path(path, timed(
             f"phase 11{'abcdef'[i]}", on_path(path, phase_train),
-            f"11{'abcdef'[i]}", zcfg, zrun, train_launches(zcfg), 2,
+            f"11{'abcdef'[i]}", zcfg, zrun,
+            {**train_launches(zcfg), "sha256_chunks": train_hashes(zrun)}, 2,
             ZOO_CUT.get((zcfg.name, "train"), "")))
     for arch in ("internvl2-1b", "qwen2-moe-a2.7b", "minicpm3-4b",
                  "jamba-v0.1-52b", "seamless-m4t-medium", "deepseek-v3-671b"):
@@ -2458,7 +2615,8 @@ def rank_16c(rank, world, workdir):
             "16c multipod int8 tinyllama (reduced)",
             multipod_train_step(model, mesh, "int8"), (params, opt, batch),
             plain, plain_p, {"flash_attention_fwd": 2,
-                             "selective_scan_fwd": 0}, GN_RTOL["int8"],
+                             "selective_scan_fwd": 0, "sha256_chunks": 0},
+            GN_RTOL["int8"],
             body="f32")
         rec["int8_wire_ok"] = int8_wire_ok(rec["collective_bytes"], params)
         out.append(rec)
@@ -3413,6 +3571,7 @@ def main() -> int:
     plan = zoo_plan()
     fa_zoo_recs, ss_zoo_recs = timed("phase 2b", phase_kernels_zoo,
                                      plan["fa_cases"], plan["ss_cases"])
+    sha = timed("phase 2c", phase_sha256)
 
     check(cfg.n_layers == 22 and cfg.d_model == 2048
           and cfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
@@ -3442,10 +3601,12 @@ def main() -> int:
 
     check(tcfg.n_layers == 22 and tcfg.d_model == 2048
           and tcfg.param_dtype == "bfloat16", "full tinyllama-1.1b config")
+    # each step's install hashes the new params and AdamW state on the
+    # card, one launch each
     fa_train_launches = timed(
         "phase 8", on_path("train tinyllama-1.1b", phase_train), "8", tcfg,
         trun,
-        train_launches(tcfg, trun.grad_accum))
+        {**train_launches(tcfg, trun.grad_accum), "sha256_chunks": 2})
     check(tmcfg.d_model == 4096 and tmcfg.d_inner == 8192
           and tmcfg.ssm_state == 16 and tmcfg.param_dtype == "bfloat16",
           f"falcon-mamba-7b at full width, {MAMBA_TRAIN_LAYERS} of 64 "
@@ -3454,7 +3615,8 @@ def main() -> int:
     ss_train_launches = timed(
         "phase 8b", on_path("train falcon-mamba-7b", phase_train), "8b",
         tmcfg, tmrun,
-        train_launches(tmcfg, tmrun.grad_accum), TRAIN_STEPS,
+        {**train_launches(tmcfg, tmrun.grad_accum), "sha256_chunks": 2},
+        TRAIN_STEPS,
         f"{MAMBA_TRAIN_LAYERS} of 64 layers")
     timed("phase 9 (tinyllama)", phase_train_parity, "9", "tinyllama-1.1b")
     timed("phase 9 (falcon-mamba)", phase_train_parity, "9",
@@ -3467,7 +3629,14 @@ def main() -> int:
         "train tinyllama-1.1b": fa_train_launches["flash_attention_fwd"]},
         "selective_scan_fwd": {
         "serve falcon-mamba-7b": ss_launches["selective_scan_fwd"],
-        "train falcon-mamba-7b": ss_train_launches["selective_scan_fwd"]}}
+        "train falcon-mamba-7b": ss_train_launches["selective_scan_fwd"]},
+        "sha256_chunks": {path: n["sha256_chunks"] for path, n in (
+            ("serve tinyllama-1.1b", fa_launches),
+            ("serve falcon-mamba-7b", ss_launches),
+            ("frontdoor tinyllama-1.1b", fd_launches),
+            ("train tinyllama-1.1b", fa_train_launches),
+            ("train falcon-mamba-7b", ss_train_launches))
+            if n["sha256_chunks"]}}
 
     for name, paths in zoo_paths(plan).items():
         by_path[name].update(paths)
@@ -3548,6 +3717,12 @@ def main() -> int:
               f"{counters['selective_scan_fwd'].lanes(torch.bfloat16, 16)} "
               f"lanes at N 16; ss_fwd_wide_kernel past it)")]}
     record["kernels"][0]["mma_body"] = fa["mma_body"]
+    sha_paths = by_path["sha256_chunks"]
+    record["kernels"].append({
+        "name": "sha256_chunks", "route": "cuda",
+        "source": "src/repro_torch/kernels/sha256/csrc/sha256_chunks.cu",
+        "replaces": None, "launches": sum(sha_paths.values()),
+        "launches_by_path": sha_paths, **sha})
     zoo_keys = keys + ("share_of_bound", "body", "library_profiler_ms")
     record["kernels"][0]["zoo_shapes"] = {
         name: {**{k: r.get(k) for k in zoo_keys + (

@@ -192,9 +192,8 @@ def _host_array(obj) -> Optional[Tuple[np.ndarray, str]]:
     if torch is not None and isinstance(obj, torch.Tensor):
         t = obj.detach()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).cpu().contiguous().numpy(), "bfloat16"
-        a = t.cpu().contiguous().numpy()
-        return a, a.dtype.str
+            t = t.view(torch.int16)
+        return t.cpu().contiguous().numpy(), _tensor_tag(obj)
     # ascontiguousarray makes a 0-d array 1-d: reshape keeps the shape, so
     # a scalar array that crosses a worker and back is still 0-d
     if isinstance(obj, BF16Bits):
@@ -206,23 +205,47 @@ def _host_array(obj) -> Optional[Tuple[np.ndarray, str]]:
     return None
 
 
-def _strip(obj, buffers: List[memoryview], moved: Optional[list] = None):
+def _tensor_tag(t) -> str:
+    """The dtype tag of tensor ``t`` in a skeleton: its numpy dtype's
+    ``str``, or ``"bfloat16"`` (whose bytes travel as int16)."""
+    torch = sys.modules["torch"]
+    if t.dtype == torch.bfloat16:
+        return "bfloat16"
+    return torch.empty(0, dtype=t.dtype).numpy().dtype.str
+
+
+def on_device(obj) -> bool:
+    """Whether ``obj`` is a tensor off the host (torch looked up, never
+    imported)."""
+    torch = sys.modules.get("torch")
+    return (torch is not None and isinstance(obj, torch.Tensor)
+            and not obj.is_cpu)
+
+
+def _strip(obj, buffers: List[Any], moved: Optional[list] = None,
+           leave_on_device: bool = False):
     """Skeleton of ``obj``; its array leaves' host bytes go to ``buffers``,
-    and ``moved[0]`` (when given) counts the bytes copied off a device."""
+    and ``moved[0]`` (when given) counts the bytes copied off a device.
+    With ``leave_on_device`` a tensor off the host goes to ``buffers`` as
+    it is."""
+    if leave_on_device and on_device(obj):
+        buffers.append(obj)
+        return _Buf(len(buffers) - 1, _tensor_tag(obj), tuple(obj.shape))
     got = _host_array(obj)
     if got is not None:
         a, tag = got
         buffers.append(_as_bytes_view(a))
-        if moved is not None and getattr(obj, "is_cpu", True) is False:
+        if moved is not None and on_device(obj):
             moved[0] += a.nbytes
         return _Buf(len(buffers) - 1, tag, tuple(a.shape))
     if isinstance(obj, dict):
-        return {k: _strip(v, buffers, moved) for k, v in obj.items()}
+        return {k: _strip(v, buffers, moved, leave_on_device)
+                for k, v in obj.items()}
     if isinstance(obj, tuple):
-        vals = [_strip(v, buffers, moved) for v in obj]
+        vals = [_strip(v, buffers, moved, leave_on_device) for v in obj]
         return type(obj)(*vals) if hasattr(obj, "_fields") else tuple(vals)
     if isinstance(obj, list):
-        return [_strip(v, buffers, moved) for v in obj]
+        return [_strip(v, buffers, moved, leave_on_device) for v in obj]
     return obj
 
 
@@ -451,30 +474,37 @@ def decode(data, store: Optional[ChannelStore] = None) -> Any:
 
 
 # --------------------------------------------------------------- manifests
-def host_buffers(value: Any) -> Tuple[Any, List[memoryview], int]:
+def host_buffers(value: Any, leave_on_device: bool = False
+                 ) -> Tuple[Any, List[Any], int]:
     """``(skeleton, buffers, device_bytes)``: ``value``'s array leaves as
     host byte views (a tensor on a device is copied to the host), its
-    skeleton, and how many of those bytes were on a device."""
-    buffers: List[memoryview] = []
+    skeleton, and how many of those bytes were on a device. With
+    ``leave_on_device`` a tensor off the host is not copied: it stands in
+    ``buffers`` as it is, in its place, for the caller to hash."""
+    buffers: List[Any] = []
     moved = [0]
-    skeleton = _strip(value, buffers, moved)
+    skeleton = _strip(value, buffers, moved, leave_on_device)
     return skeleton, buffers, moved[0]
 
 
-def digest_buffers(skeleton: Any, buffers: List[memoryview],
-                   chunk_bytes: int = CHUNK_BYTES
+def digest_buffers(skeleton: Any, buffers: List[Any],
+                   chunk_bytes: int = CHUNK_BYTES,
+                   digests: Optional[Dict[int, List[bytes]]] = None
                    ) -> Tuple[bytes, List[Tuple[bytes, int]]]:
     """The manifest of :func:`host_buffers`' output: SHA-256 over the
-    host bytes, no copy."""
+    host bytes, no copy. ``digests`` maps the index of a buffer that was
+    kept off the host to its chunk digests, hashed elsewhere over the same
+    bytes in the same chunks."""
     h = hashlib.sha256(pickle.dumps(skeleton,
                                     protocol=pickle.HIGHEST_PROTOCOL))
     chunks: List[Tuple[bytes, int]] = []
-    for mv in buffers:
-        n = mv.nbytes
-        for off in range(0, n, chunk_bytes):
-            piece = mv[off:off + chunk_bytes]
-            d = digest_of(piece)
-            chunks.append((d, len(piece)))
+    for i, buf in enumerate(buffers):
+        done = digests.get(i) if digests else None
+        n = buf.nbytes
+        for k, off in enumerate(range(0, n, chunk_bytes)):
+            d = (done[k] if done is not None
+                 else digest_of(buf[off:off + chunk_bytes]))
+            chunks.append((d, min(chunk_bytes, n - off)))
             h.update(d)
     return h.digest()[:DIGEST_BYTES], chunks
 
@@ -486,7 +516,9 @@ def manifest_of(value: Any, chunk_bytes: int = CHUNK_BYTES
     The chunk list is what a content-addressed store indexes (which
     chunks are resident where); the content digest — skeleton pickle +
     chunk digests — identifies the whole value for step memoization.
-    Every leaf is on the host before the first digest.
+    Here every leaf is copied to the host before the first digest; MDSS
+    hashes a value's large CUDA leaves on the card instead
+    (``repro_torch.kernels.sha256``), to the same digests.
     """
     skeleton, buffers, _ = host_buffers(value)
     return digest_buffers(skeleton, buffers, chunk_bytes)

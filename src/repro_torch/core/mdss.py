@@ -39,11 +39,16 @@ URI-keyed, versioned, multi-tier data store:
     that. A transport exposing ``transfer_ex`` (the fabric's
     RPCTransport) ships metadata only for fully-resident values;
     ``content_digest(uri)`` is the whole-value identity the runtime's
-    cross-run step memoization keys on. Every hash of a value is one
+    cross-run step memoization keys on. A value whose leaves on a
+    device hold at least ``CARD_HASH_CHUNKS`` chunks has those leaves
+    hashed where they are, on the card (``kernels.sha256``: the same
+    chunk digests, only they come back); every other leaf is copied to
+    host memory and hashed there. Every hash of a value is one
     ``mdss.hash`` span (attr ``uri``) in the owning runtime's tracer,
-    with two children: ``mdss.to_host``, the value's leaves copied to
-    host memory (``bytes`` those that were on a device), then
-    ``mdss.sha256``, the digests over them (``bytes`` those hashed),
+    with two children: ``mdss.to_host``, the leaves copied to host
+    memory (``bytes`` those that were on a device), then
+    ``mdss.sha256``, the digests (``bytes`` every byte hashed,
+    ``card_bytes`` those hashed on the card),
   * **residency budgets** (per namespace, per tier): resident bytes are
     accounted incrementally on every copy install/replace/delete, and
     ``set_namespace_budget(ns, tier, max_bytes)`` bounds a namespace's
@@ -71,9 +76,22 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from repro_torch._tree import to_device, tree_leaves
-from repro_torch.cloud.wire import digest_buffers, host_buffers, manifest_of
+from repro_torch.cloud.wire import (CHUNK_BYTES, digest_buffers, host_buffers,
+                                    on_device)
+from repro_torch.kernels.sha256 import chunk_digests
 from repro_torch.obs.tracing import Tracer
+
+# A value's leaves on a device are hashed on the card once they hold this
+# many CHUNK_BYTES chunks. The kernel's time is about one chunk's chain of
+# compressions whatever the number of chunks; the host's grows with the
+# chunks, each copied off the card and hashed with hashlib. On one H100
+# (700 W) a call of the kernel over one chunk took 27.4 ms and the host
+# path 1.252 ms a chunk (80.1 ms for 64), so the two meet at 27.4 / 1.252
+# = 21.9 chunks (PERF.md, the table of the port's kernels).
+CARD_HASH_CHUNKS = 22
 
 
 class MDSSTransferError(RuntimeError):
@@ -103,6 +121,22 @@ def shard_uri(uri: str, k: int) -> str:
 def shard_uris(uri: str, n: int) -> List[str]:
     """All ``n`` shard URIs of ``uri``, in shard order."""
     return [shard_uri(uri, k) for k in range(n)]
+
+
+def hashes_on_card(value) -> bool:
+    """Whether MDSS hashes ``value``'s leaves off the host on the card:
+    when they hold at least ``CARD_HASH_CHUNKS`` chunks."""
+    chunks = sum(-(-leaf.nbytes // CHUNK_BYTES)
+                 for leaf in tree_leaves(value) if on_device(leaf))
+    return chunks >= CARD_HASH_CHUNKS
+
+
+def _digests(skeleton, buffers):
+    """``wire.digest_buffers`` over ``host_buffers``' output, the leaves
+    it kept off the host hashed by the kernel."""
+    kept = [i for i, b in enumerate(buffers) if isinstance(b, torch.Tensor)]
+    done = chunk_digests([buffers[i] for i in kept])
+    return digest_buffers(skeleton, buffers, digests=dict(zip(kept, done)))
 
 
 def nbytes_of(value) -> int:
@@ -540,19 +574,24 @@ class MDSS:
         return mani
 
     def _hash(self, uri: str, value):
-        """``wire.manifest_of(value)``, the one place the store hashes: an
-        ``mdss.hash`` span split into the copy to the host and SHA-256,
+        """``wire.manifest_of(value)``, the one place the store hashes, the
+        leaves off the host on the card where ``hashes_on_card(value)``:
+        an ``mdss.hash`` span split into the copy to the host and SHA-256,
         when the tracer is on."""
+        on_card = hashes_on_card(value)
         tr = self.tracer
         if not tr.enabled:
-            return manifest_of(value)
+            return _digests(*host_buffers(value, on_card)[:2])
         with tr.span("mdss.hash", cat="data", uri=uri):
             with tr.span("mdss.to_host", cat="data") as hs:
-                skeleton, buffers, moved = host_buffers(value)
+                skeleton, buffers, moved = host_buffers(value, on_card)
                 hs.set(bytes=moved)
+            card = sum(b.nbytes for b in buffers
+                       if isinstance(b, torch.Tensor))
             with tr.span("mdss.sha256", cat="data",
-                         bytes=sum(b.nbytes for b in buffers)):
-                return digest_buffers(skeleton, buffers)
+                         bytes=sum(b.nbytes for b in buffers),
+                         card_bytes=card):
+                return _digests(skeleton, buffers)
 
     def _cache_manifest(self, key, mani):
         self._manifest_cache[key] = mani

@@ -1,10 +1,12 @@
-"""The port's Hopper kernels (flash attention, selective scan) against
-their plain versions, on the card.
+"""The port's Hopper kernels (flash attention, selective scan, SHA-256 of
+chunks) against their plain versions, on the card.
 
 These need a CUDA card and skip without one; on a machine with an H100
 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/``. This file
 imports torch and the port only, as that machine has no jax.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -620,3 +622,123 @@ def test_kernel_ops_launch_on_real_cuda_tensors():
     want = ref.attention_ref(q.float(), q[:, :, :2].float(),
                              q[:, :, :2].float(), scale=0.125, causal=True)
     assert float((o.float() - want).abs().max()) < TOL[torch.bfloat16]
+
+
+# ------------------------------------------------------ SHA-256 of chunks
+MiB = 1 << 20
+_Pair = collections.namedtuple("_Pair", "a b")
+
+
+def _bytes_on_card(n, seed=0):
+    g = torch.Generator().manual_seed(seed + n)
+    return torch.randint(0, 256, (n,), dtype=torch.uint8, generator=g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 55, 56, 63, 64, 65, 119, MiB - 1, MiB,
+                               MiB + 1, 7 * MiB // 2])
+def test_sha256_chunks_match_hashlib(n):
+    from repro_torch.cloud import wire
+    from repro_torch.kernels.sha256 import kernel as sha
+    _card()
+    host = _bytes_on_card(n)
+    want = [wire.digest_of(bytes(host.numpy()[o:o + MiB]))
+            for o in range(0, n, MiB)]
+    before = sha.launches
+    assert sha.chunk_digests([host.cuda()]) == [want]
+    assert sha.launches == before + (1 if n else 0)
+
+
+@pytest.mark.cuda
+def test_sha256_kernel_rows_of_any_length():
+    """One launch over hand-made rows: lengths 0 (a null pointer, nothing
+    read) to 129, each the truncated SHA-256 of its bytes."""
+    import hashlib
+    from repro_torch.kernels.sha256 import kernel as sha
+    _card()
+    data = _bytes_on_card(4096).cuda()
+    lens = [0, 1, 55, 56, 63, 64, 65, 119, 120, 128, 129]
+    n = len(lens)
+    out = torch.zeros(2 * n, dtype=torch.int64, device="cuda")
+    rows = [[0 if ln == 0 else data.data_ptr() + 256 * i, ln,
+             out.data_ptr() + 16 * i] for i, ln in enumerate(lens)]
+    sha._launch(torch.tensor(rows, dtype=torch.int64, device="cuda"), n)
+    raw = out.cpu().numpy().tobytes()
+    host = data.cpu().numpy()
+    for i, ln in enumerate(lens):
+        want = hashlib.sha256(bytes(host[256 * i:256 * i + ln])).digest()
+        assert raw[16 * i:16 * i + 16] == want[:16], ln
+
+
+def _views():
+    """name -> (a CPU tensor, the view of it that is hashed), the view
+    taken on the card of the tensor's copy there."""
+    g = torch.Generator().manual_seed(7)
+    f32 = torch.randn(3 * MiB // 4 + 5, generator=g)
+    whole = lambda t: t
+    return {
+        "bf16": (torch.randn(MiB + 3, generator=g).to(torch.bfloat16), whole),
+        "f32": (f32, whole),
+        "int64": (torch.randint(-2 ** 62, 2 ** 62, (MiB // 8 + 9,),
+                                generator=g), whole),
+        "uint8": (_bytes_on_card(2 * MiB + 17), whole),
+        "bool": (torch.rand(MiB + 1, generator=g) > 0.5, whole),
+        "0-d": (torch.tensor(3.5), whole),
+        "non-contiguous": (f32, lambda t: t[:3 * MiB // 4]
+                           .reshape(3 * 256, 1024).t()),
+        "odd offset": (f32, lambda t: t[1:]),
+        "odd offset bf16": (torch.randn(4099, generator=g)
+                            .to(torch.bfloat16), lambda t: t[3:]),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_views()))
+def test_sha256_chunks_of_every_dtype_and_view(name):
+    from repro_torch.kernels.sha256 import kernel as sha
+    _card()
+    base, view = _views()[name]
+    dev = view(base.cuda())
+    if view(base) is not base:
+        assert not dev.is_contiguous() or dev.data_ptr() % 16
+    assert sha.chunk_digests([dev]) == [sha.plain(view(base))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [0, 1])
+def test_mdss_hash_on_the_card_equals_manifest_of_its_copy(extra):
+    """Just below ``CARD_HASH_CHUNKS`` chunks on the card the host path
+    runs, at it the kernel, once per value; both give ``manifest_of`` of
+    the value's CPU copy, digest and chunk list."""
+    from repro_torch.cloud import wire
+    from repro_torch.core import MDSS, default_tiers
+    from repro_torch.core import mdss as mdss_mod
+    from repro_torch.kernels.sha256 import kernel as sha
+    from repro_torch.obs.tracing import Tracer
+    _card()
+    K = mdss_mod.CARD_HASH_CHUNKS
+    P = _Pair
+    g = torch.Generator().manual_seed(extra)
+    # K - 4 chunks, 2, 1 and ``extra``: K - 1 + extra on the card
+    host = {"w": torch.randn((K - 4) * MiB // 2, generator=g)
+            .to(torch.bfloat16).reshape(-1, 1024),
+            "mu": [torch.randn(MiB // 4 + 3, generator=g),
+                   np.arange(5, dtype=np.int32)],
+            "p": P(torch.tensor(2.0), _bytes_on_card(extra, 3)),
+            "cpu": torch.ones(MiB + 9), "tag": "x"}
+    value = {k: v for k, v in host.items()}
+    value["w"] = host["w"].cuda()
+    value["mu"] = [host["mu"][0].cuda(), host["mu"][1]]
+    value["p"] = P(host["p"].a.cuda(), host["p"].b.cuda())
+    assert mdss_mod.hashes_on_card(value) is bool(extra)
+    store = MDSS(default_tiers(cloud_device="cpu"))
+    store.tracer = Tracer()
+    before = sha.launches
+    got = store._hash("v", value)
+    assert sha.launches == before + extra
+    assert got == wire.manifest_of(host)
+    (sha_span,) = [s for s in store.tracer.spans()
+                   if s.name == "mdss.sha256"]
+    dev_bytes = sum(t.nbytes for t in (value["w"], value["mu"][0],
+                                       value["p"].a, value["p"].b))
+    assert sha_span.attrs["card_bytes"] == (dev_bytes if extra else 0)

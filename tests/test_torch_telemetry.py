@@ -1,5 +1,8 @@
 """The port's telemetry on the CPU: MDSS's hashing spans (``mdss.hash``
-with its ``mdss.to_host`` and ``mdss.sha256`` children), the run's
+with its ``mdss.to_host`` and ``mdss.sha256`` children), MDSS's choice
+between hashing a value's device leaves on the host and on the card
+(``CARD_HASH_CHUNKS``, through tensors that report themselves off the
+host) and the SHA-256 kernel wrapper's chunk table, the run's
 ``submit`` span, each FrontDoor request's ``frontdoor.request`` /
 ``frontdoor.wait`` spans and their link to the fused run, the
 ``telemetry`` switch of ``Trainer`` and of a ``Server``'s runtime, the coalescer's
@@ -7,9 +10,14 @@ bounded event ring, and the program's spans as user annotations in a
 ``torch.profiler`` trace.
 """
 import collections
+import ctypes
 import hashlib
 import json
+import os
+import pathlib
 import pickle
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -22,7 +30,9 @@ from repro_torch.configs.base import RunConfig, ShapeProfile, reduced
 from repro_torch.core import (CostModel, EmeraldRuntime, MDSS,
                               MigrationManager, Workflow, default_tiers)
 from repro_torch.core import batching
+from repro_torch.core import mdss as mdss_mod
 from repro_torch.core.batching import BatchCoalescer
+from repro_torch.kernels.sha256 import kernel as sha_kernel
 from repro_torch.launch.serve import FrontDoor, Server
 from repro_torch.launch.train import Trainer
 from repro_torch.obs.tracing import Tracer
@@ -138,7 +148,7 @@ def test_hash_helper_matches_manifest_of(name):
     (h,) = [s for s in spans if s.name == "mdss.hash"]
     assert h.attrs == {"uri": "x"}
     (sha,) = children(spans, h, "mdss.sha256")
-    assert sha.attrs == {"bytes": nbytes(value)}
+    assert sha.attrs == {"bytes": nbytes(value), "card_bytes": 0}
 
 
 class _OnDevice(torch.Tensor):
@@ -168,6 +178,156 @@ def test_to_host_bytes_on_the_card():
     store._hash("x", value)
     (copy,) = [s for s in store.tracer.spans() if s.name == "mdss.to_host"]
     assert copy.attrs["bytes"] == 1024
+
+
+# ------------------------------------------------- hashing on the card
+K = mdss_mod.CARD_HASH_CHUNKS
+MiB = wire.CHUNK_BYTES
+
+
+def _dev(nbytes, dtype=torch.uint8):
+    """A host tensor of ``nbytes`` seeded bytes that reports itself off
+    the host."""
+    g = torch.Generator().manual_seed(nbytes)
+    raw = torch.randint(0, 256, (nbytes,), dtype=torch.uint8, generator=g)
+    return raw.view(dtype).as_subclass(_OnDevice)
+
+
+def _stand_in(tables):
+    """The kernel's contract on host memory: each (src, len, out) row's
+    truncated SHA-256 written to ``out``; the rows kept in ``tables``."""
+    def launch(table, n):
+        rows = table.tolist()
+        assert len(rows) == n
+        for src, ln, out in rows:
+            assert src % 16 == 0 and out % 16 == 0
+            d = wire.digest_of(ctypes.string_at(src, ln))
+            ctypes.memmove(out, d, len(d))
+        tables.append(rows)
+    return launch
+
+
+@pytest.mark.parametrize("leaves,on_card", [
+    ([(K - 1) * MiB], False),
+    ([(K - 1) * MiB + 1], True),
+    ([MiB] * (K - 1) + [1], True),
+    ([1] * K, True),
+    ([1] * (K - 1), False),
+])
+def test_card_routing_at_the_chunk_threshold(leaves, on_card):
+    value = {"dev": [_dev(n) for n in leaves],
+             "host": torch.ones(3 * MiB, dtype=torch.uint8),
+             "np": np.ones(2 * MiB, dtype=np.uint8)}
+    dev_bytes = sum(leaves)
+    assert mdss_mod.hashes_on_card(value) is on_card
+    store = MDSS(default_tiers(cloud_device="cpu"))
+    store.tracer = Tracer()
+    assert store._hash("x", value) == wire.manifest_of(value)
+    spans = store.tracer.spans()
+    (copy,) = [s for s in spans if s.name == "mdss.to_host"]
+    (sha,) = [s for s in spans if s.name == "mdss.sha256"]
+    assert copy.attrs["bytes"] == (0 if on_card else dev_bytes)
+    assert sha.attrs == {"bytes": dev_bytes + 5 * MiB,
+                         "card_bytes": dev_bytes if on_card else 0}
+
+
+def test_host_leaves_do_not_count_toward_the_card():
+    value = [_dev((K - 1) * MiB), torch.ones(K * MiB, dtype=torch.uint8),
+             np.ones(K * MiB, dtype=np.uint8)]
+    assert not mdss_mod.hashes_on_card(value)
+    assert mdss_mod.hashes_on_card(value + [_dev(1)])
+
+
+def _mixed():
+    base = torch.arange(3000, dtype=torch.float32)
+    return {
+        "w": [_dev(2 * MiB + 3, torch.uint8), np.float32(2.0),
+              torch.arange(9, dtype=torch.float32),
+              _dev(2 * 4099, torch.bfloat16)],
+        "t": (_dev(8 * 700, torch.int64), {"k": np.arange(5)},
+              _dev(301, torch.bool)),
+        "p": Pair(_dev(4, torch.float32).reshape(()), "tag"),
+        "empty": _dev(0, torch.float32).reshape(0, 3),
+        "strided": base.reshape(60, 50).t().as_subclass(_OnDevice),
+        "odd": base[1:].as_subclass(_OnDevice),
+        "host": torch.ones(7, dtype=torch.bfloat16),
+        "none": None, "scalar": 7,
+    }
+
+
+@pytest.mark.parametrize("chunk_bytes", [80, 4096, wire.CHUNK_BYTES])
+def test_card_path_keeps_the_skeleton_order_and_chunks(chunk_bytes):
+    value = _mixed()
+    skeleton, buffers, _ = wire.host_buffers(value)
+    kskel, kept, moved = wire.host_buffers(value, leave_on_device=True)
+    assert kskel == skeleton and moved == 0
+    assert len(kept) == len(buffers)
+    devs = [i for i, b in enumerate(kept) if isinstance(b, torch.Tensor)]
+    assert len(devs) == 8
+    assert all(isinstance(kept[i], memoryview) for i in range(len(kept))
+               if i not in devs)
+    tables = []
+    got = sha_kernel._run([kept[i] for i in devs], chunk_bytes,
+                          _stand_in(tables))
+    (rows,) = tables
+    want = wire.digest_buffers(skeleton, buffers, chunk_bytes)
+    at = 0
+    for i, ds in zip(devs, got):
+        n = buffers[i].nbytes
+        bounds = [(off, min(chunk_bytes, n - off))
+                  for off in range(0, n, chunk_bytes)]
+        mine = rows[at:at + len(bounds)]
+        assert [(src - mine[0][0], ln) for src, ln, _ in mine] == bounds
+        assert ds == [wire.digest_of(buffers[i][o:o + ln])
+                      for o, ln in bounds]
+        at += len(bounds)
+    assert at == len(rows)
+    assert wire.digest_buffers(kskel, kept, chunk_bytes,
+                               dict(zip(devs, got))) == want
+    if chunk_bytes == wire.CHUNK_BYTES:
+        assert mdss_mod._digests(kskel, kept) == wire.manifest_of(value)
+
+
+LENGTHS = [0, 1, 55, 56, 63, 64, 65, 119, MiB - 1, MiB, MiB + 1,
+           7 * MiB // 2]
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_chunk_table_digests_match_digest_of(n):
+    t = _dev(n).as_subclass(torch.Tensor)
+    want = [wire.digest_of(bytes(t.numpy()[o:o + MiB]))
+            for o in range(0, n, MiB)]
+    assert sha_kernel.chunk_digests([t]) == [want]
+    assert sha_kernel._run([t], MiB, _stand_in([])) == [want]
+
+
+def test_chunk_digests_refuse_what_they_cannot_hash():
+    with pytest.raises(ValueError, match="meta"):
+        sha_kernel.chunk_digests([torch.empty(4, device="meta")])
+
+
+_WIRE_WITHOUT_TORCH = r"""
+import sys
+sys.modules["torch"] = None        # any `import torch` now raises
+import numpy as np
+from repro_torch.cloud import wire
+value = {"a": np.arange(70000, dtype=np.int64),
+         "b": [np.float32(2.0), np.ones((3, 4), dtype=np.bool_)]}
+print(wire.manifest_of(value)[0].hex())
+"""
+
+
+def test_wire_imports_and_hashes_without_torch():
+    """The wire format, which fabric workers load, keeps no import of
+    torch: a value's manifest is the one this process computes."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    res = subprocess.run([sys.executable, "-c", _WIRE_WITHOUT_TORCH],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    value = {"a": np.arange(70000, dtype=np.int64),
+             "b": [np.float32(2.0), np.ones((3, 4), dtype=np.bool_)]}
+    assert res.stdout.split()[-1] == wire.manifest_of(value)[0].hex()
 
 
 def test_submit_span_in_the_runs_trace():
