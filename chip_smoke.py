@@ -62,13 +62,21 @@ each phase's wall time printed:
      the batch crosses to the card; s/step, tokens/s, ship/exec/install
      per step, peak device bytes and the device's idle share;
   8b. the same for falcon-mamba-7b at full width (d_model 4096, d_inner
-     8192, N 16, bf16) and 8 of its 64 layers (the whole model with AdamW
+     8192, N 16, bf16) and 4 of its 64 layers (the whole model with AdamW
      f32 state needs ~87 GB), 1024 tokens x 2: the selective scan launches
-     8 x 2 per step;
+     4 x 2 per step, its backward kernel 4;
   9. one train step of each arch at 2 layers, full width, f32, from one
      param tree, on the card (f32 kernel bodies) against the CPU (plain
      versions): loss rtol 1e-4, grad_norm rtol 1e-3, every updated leaf
      within 2 lr_1;
+  2d. (run right after phase 2) the scan's backward kernel at the train
+     cell's (2, 2048, 8192, 16), bf16, B and C x_proj slices, against
+     ``closed_form_bwd`` on the same inputs: agreement, equal bits from
+     two calls, one launch a call, its time against ``ss_bwd_bound_ms``
+     and the plain version's; every main path counts its launches
+     (``selective_scan_bwd``, one per Mamba layer per microbatch of a
+     train step, none on serve, FrontDoor and AT), and no main path may
+     reach ``closed_form_bwd`` with CUDA tensors;
   2b. (run after phase 2) flash attention at every call of the model
      zoo's serve and train paths (phases 10-11), built from their configs:
      MLA's dq != dv (minicpm3 96/64, deepseek-v3 192/128), MLA's and
@@ -625,9 +633,9 @@ def ss_case(Bt, L, di, N, dtype_name, proj_width=None, timed=False):
 
 def ss_backward(Bt, L, di, N, dtype_name):
     """``backward_check`` of the selective-scan Functions at one shape:
-    kernel forward and closed-form backward at f32 on the card, the
-    closed-form path at f32 on the CPU, from the same inputs (x, B, C in
-    the dtype) and the forward's tolerance."""
+    the forward and backward kernels on the card, the closed-form path at
+    f32 on the CPU, from the same inputs (x, B, C in the dtype) and the
+    forward's tolerance."""
     import torch
     from repro_torch.kernels.mamba_scan import ops
     dt_ = getattr(torch, dtype_name)
@@ -685,6 +693,89 @@ def phase_scan(serve_shape, train_shape, dt_rank):
           "the CPU's (train shape bf16; a sweep case f32 and bf16)"
           + (f"; failing: {bad}" if bad else ""))
     return slice_rec, long_rec, train_rec
+
+
+def ss_bwd_bound_ms(Bt, L, di, N, dtype):
+    """Least time for one backward call: its inputs x, dt, A, B, C, D, h0,
+    y_bar, hlast_bar read once and its cotangents written once over HBM
+    bandwidth, or the 2*Bt*L*di*N exponentials it needs at least (a_t for
+    the states and again for lam, neither kept in HBM) over the
+    special-function units' rate (its ~19 f32 FLOPs an element at 67
+    TFLOP/s take less); the larger bounds it."""
+    es = 2 if dtype == "bfloat16" else 4
+    nbytes = (es * (2 * Bt * L * di + 4 * Bt * L * N)    # x, dx; B, C, dB, dC
+              + es * Bt * L * di                         # y_bar
+              + 4 * 2 * Bt * L * di                      # dt, d(dt)
+              + 4 * 2 * (di * N + di)                    # A, D, dA, dD
+              + 4 * 3 * Bt * di * N)                     # h0, hlast_bar, dh0
+    from repro_torch.kernels.mamba_scan.ops import bwd_flops
+    exps = 2 * Bt * L * di * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(exps / SFU_EXP_PER_S,
+                bwd_flops(Bt, L, di, N) / PEAK_FLOPS["float32"]) * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_scan_bwd(Bt, L, di, N, proj_width):
+    """The scan's backward kernel at the train cell's shape (bf16, B and
+    C slices of the x_proj output) against the plain ``closed_form_bwd``
+    on the same resident inputs: every cotangent within the forward's
+    bf16 tolerance (``grads_agree``, as the card tests hold it), equal
+    bits from two calls, launches per call, and both timed against
+    ``ss_bwd_bound_ms``. Returns the record."""
+    print("== phase 2d: the scan's backward kernel at the train cell's "
+          "shape against its plain version", flush=True)
+    import torch
+    from repro_torch.kernels.mamba_scan import kernel, ops
+    g = torch.Generator(device="cuda").manual_seed(L + di)
+    bf = torch.bfloat16
+    x = torch.randn((Bt, L, di), generator=g, device="cuda").to(bf)
+    dt = torch.empty((Bt, L, di), device="cuda").uniform_(1e-3, 0.1,
+                                                          generator=g)
+    A = -torch.empty((di, N), device="cuda").uniform_(0.5, 2.0, generator=g)
+    proj = torch.randn((Bt, L, proj_width), generator=g,
+                       device="cuda").to(bf)
+    r = proj_width - 2 * N
+    B, C = proj[..., r:r + N], proj[..., r + N:]
+    D = torch.randn((di,), generator=g, device="cuda")
+    h0 = torch.randn((Bt, di, N), generator=g, device="cuda")
+    y_bar = torch.randn((Bt, L, di), generator=g, device="cuda").to(bf)
+    h_bar = torch.randn((Bt, di, N), generator=g, device="cuda")
+    args = (x, dt, A, B, C, D, h0, y_bar, h_bar)
+
+    def run():
+        return kernel.selective_scan_bwd(*args)
+
+    def plain():
+        return ops.closed_form_bwd(*args, chunk=ops._mem_chunk(512, x))
+    before = kernel.bwd_launches
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    launches = kernel.bwd_launches - before
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    tol = TOL["bfloat16"]
+    err, ok = grads_agree([t.float() for t in got],
+                          [t.float() for t in plain()], tol)
+    del got, again
+    rec = {"shape": [Bt, L, di, N], "dtype": "bfloat16", "strided_bc": True,
+           "max_abs_err": err, "tol": tol, "ok": ok, "bits_repeat": same,
+           "launches_per_call": launches / 2}
+    rec["bound_ms"], rec["bound_by"] = ss_bwd_bound_ms(Bt, L, di, N,
+                                                       "bfloat16")
+    rec["ms"] = cuda_ms(run)
+    rec["profiler_ms"] = profiled_ms(run, "ss_bwd")
+    rec["host_us_per_call"] = host_us(run, iters=50)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["plain_ms"] = cuda_ms(plain, iters=3)
+    rec["library_ms"] = None     # no PyTorch call computes this gradient
+    print("  selective_scan_bwd (train cell shape) " + json.dumps(rec),
+          flush=True)
+    check(ok and same and launches == 2,
+          f"the backward kernel's seven cotangents within {tol} of "
+          f"closed_form_bwd (relative, and absolute times each one's rms), "
+          f"equal bits from two calls, one launch a call")
+    return rec
 
 
 def phase_kernels(fa_shapes, ss_shapes, dt_rank):
@@ -878,11 +969,28 @@ def init_on_card(model, seed):
     return params, time.perf_counter() - t0
 
 
+class Counter:
+    """A kernel's launch count kept on its module under another name than
+    ``launches``, with that kernel's build."""
+
+    def __init__(self, mod, attr, build):
+        self.mod, self.attr, self.build = mod, attr, build
+
+    @property
+    def launches(self):
+        return getattr(self.mod, self.attr)
+
+    @launches.setter
+    def launches(self, n):
+        setattr(self.mod, self.attr, n)
+
+
 def kernel_counters():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.mamba_scan import kernel as ss
     from repro_torch.kernels.sha256 import kernel as sha
     return {"flash_attention_fwd": fa, "selective_scan_fwd": ss,
+            "selective_scan_bwd": Counter(ss, "bwd_launches", ss.build_bwd),
             "sha256_chunks": sha}
 
 
@@ -908,6 +1016,8 @@ def read_counters():
 # against the plain version in this run (``fa_case``, ``ss_case``). Phase 13
 # checks each launched key that the plan did not, and fails if one is left.
 LAUNCHED = {"flash_attention_fwd": {}, "selective_scan_fwd": {}}
+# main paths that reached the scan's plain backward with CUDA tensors
+PLAIN_BWD_ON_CARD = set()
 CHECKED = {"flash_attention_fwd": set(), "selective_scan_fwd": set()}
 _PATH = [None]      # the main path being driven, None between paths
 FA_SEEN = set()     # flash shape keys launched since the last clear
@@ -947,6 +1057,16 @@ def watch_launch_shapes():
         return ss_fwd(x, dt, A, B, C, D, h0)
 
     fa.flash_attention_fwd, ss.selective_scan_fwd = fa_watched, ss_watched
+
+    from repro_torch.kernels.mamba_scan import ops as ss_ops
+    plain_bwd = ss_ops.closed_form_bwd
+
+    def plain_bwd_watched(x, *args, **kwargs):
+        if _PATH[0] and x.is_cuda:
+            PLAIN_BWD_ON_CARD.add(_PATH[0])
+        return plain_bwd(x, *args, **kwargs)
+
+    ss_ops.closed_form_bwd = plain_bwd_watched
 
 
 def on_path(path, fn, runtime=True):
@@ -1665,10 +1785,12 @@ def phase_frontdoor(cfg, run):
           f"rows finite, ({FD_REQUESTS}, {cfg.vocab_padded})")
     check(flushes >= 2 and launches["flash_attention_fwd"]
           == cfg.n_layers * flushes and launches["selective_scan_fwd"] == 0
+          and launches["selective_scan_bwd"] == 0
           and launches["sha256_chunks"] == 0,
           f"flash_attention_fwd launches {launches['flash_attention_fwd']} "
-          f"= {cfg.n_layers} layers x {flushes} flushes; no scan; no "
-          f"SHA-256 (each flush's values under CARD_HASH_CHUNKS)")
+          f"= {cfg.n_layers} layers x {flushes} flushes; no scan, no "
+          f"backward; no SHA-256 (each flush's values under "
+          f"CARD_HASH_CHUNKS)")
     check(max(rel) <= FD_REL_TOL,
           f"every row against its window alone: rel err {max(rel):.3e} <= "
           f"{FD_REL_TOL}")
@@ -1960,7 +2082,7 @@ def zoo_launches(cfg):
     """Kernel launches of one forward over a sequence: flash attention
     once per attention layer (and per encoder layer and cross-attention
     of an encoder-decoder) and per 128 columns of v, the selective scan
-    once per Mamba layer."""
+    once per Mamba layer; no backward."""
     from repro_torch.configs.base import ATTN_DENSE, ATTN_MOE
     n_attn = sum(cfg.block_type(i) in (ATTN_DENSE, ATTN_MOE)
                  for i in range(cfg.n_layers))
@@ -1968,12 +2090,13 @@ def zoo_launches(cfg):
                    if cfg.is_encoder_decoder else 0)
     return {"flash_attention_fwd": fa * fa_call_passes(cfg),
             "selective_scan_fwd": cfg.n_layers - n_attn,
-            "sha256_chunks": 0}
+            "selective_scan_bwd": 0, "sha256_chunks": 0}
 
 
 def train_launches(cfg, grad_accum=1):
     """Launches of one train step under remat "full": every block's
-    forward runs again in the backward; the MTP head's block is not
+    forward runs again in the backward, and the scan's backward kernel
+    runs once per Mamba layer and microbatch; the MTP head's block is not
     rematerialised. The step hashes nothing: a Trainer's install adds
     ``train_hashes``."""
     per = zoo_launches(cfg)
@@ -1981,16 +2104,19 @@ def train_launches(cfg, grad_accum=1):
                 2 * per["flash_attention_fwd"]
                 + int(cfg.mtp) * fa_call_passes(cfg)),
             "selective_scan_fwd": grad_accum * 2 * per["selective_scan_fwd"],
+            "selective_scan_bwd": grad_accum * per["selective_scan_fwd"],
             "sha256_chunks": 0}
 
 
 def pipeline_launches(cfg, n_micro, n_stages):
     """Launches of one GPipe step on one stage's process: each of its
     n_micro + n_stages - 1 ticks runs the stage's layers, forward and (remat
-    "full") again in the backward."""
+    "full") again in the backward, and the scan's backward once."""
     per = zoo_launches(cfg)
     ticks = n_micro + n_stages - 1
-    return {k: 2 * ticks * v // n_stages for k, v in per.items()}
+    out = {k: 2 * ticks * v // n_stages for k, v in per.items()}
+    out["selective_scan_bwd"] = ticks * per["selective_scan_fwd"] // n_stages
+    return out
 
 
 def phase_kernels_zoo(fa_cases, ss_cases):
@@ -2615,7 +2741,8 @@ def rank_16c(rank, world, workdir):
             "16c multipod int8 tinyllama (reduced)",
             multipod_train_step(model, mesh, "int8"), (params, opt, batch),
             plain, plain_p, {"flash_attention_fwd": 2,
-                             "selective_scan_fwd": 0, "sha256_chunks": 0},
+                             "selective_scan_fwd": 0,
+                             "selective_scan_bwd": 0, "sha256_chunks": 0},
             GN_RTOL["int8"],
             body="f32")
         rec["int8_wire_ok"] = int8_wire_ok(rec["collective_bytes"], params)
@@ -3568,6 +3695,10 @@ def main() -> int:
         "phase 2", phase_kernels, (fa_shape, fa_train), (ss_shape, ss_train),
         mcfg.dt_rank_)
 
+    # the train cell's (portbench/configs/falcon-mamba-7b-l4.json) scan
+    ss_bwd = timed("phase 2d", phase_scan_bwd, 2, 2048, mcfg.d_inner,
+                   mcfg.ssm_state, mcfg.dt_rank_ + 2 * mcfg.ssm_state)
+
     plan = zoo_plan()
     fa_zoo_recs, ss_zoo_recs = timed("phase 2b", phase_kernels_zoo,
                                      plan["fa_cases"], plan["ss_cases"])
@@ -3630,6 +3761,8 @@ def main() -> int:
         "selective_scan_fwd": {
         "serve falcon-mamba-7b": ss_launches["selective_scan_fwd"],
         "train falcon-mamba-7b": ss_train_launches["selective_scan_fwd"]},
+        "selective_scan_bwd": {
+        "train falcon-mamba-7b": ss_train_launches["selective_scan_bwd"]},
         "sha256_chunks": {path: n["sha256_chunks"] for path, n in (
             ("serve tinyllama-1.1b", fa_launches),
             ("serve falcon-mamba-7b", ss_launches),
@@ -3671,6 +3804,12 @@ def main() -> int:
     check(by_path["selective_scan_fwd"].get("serve jamba-v0.1-52b")
           and by_path["flash_attention_fwd"].get("serve jamba-v0.1-52b"),
           "the jamba serve path launched both kernels")
+    check(not PLAIN_BWD_ON_CARD and not any(
+              path.startswith(("serve", "frontdoor", "adjoint"))
+              for path in by_path["selective_scan_bwd"]),
+          f"the scan's backward kernel ran on no serve, FrontDoor or AT path "
+          f"{by_path['selective_scan_bwd']}; no main path took "
+          f"closed_form_bwd on the card {sorted(PLAIN_BWD_ON_CARD)}")
     unplanned = timed("phase 13", phase_launched_shapes)
     tenant_paths = timed("phase 15", phase_tenants, FIG11, fig11)
     meshes = [f"adjoint tomography {c.mesh_name}" for c in (FIG11, FIG12)]
@@ -3717,6 +3856,13 @@ def main() -> int:
               f"{counters['selective_scan_fwd'].lanes(torch.bfloat16, 16)} "
               f"lanes at N 16; ss_fwd_wide_kernel past it)")]}
     record["kernels"][0]["mma_body"] = fa["mma_body"]
+    bwd_paths = by_path["selective_scan_bwd"]
+    record["kernels"].append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_scan/csrc/"
+                  "selective_scan_bwd.cu",
+        "replaces": None, "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths, **ss_bwd})
     sha_paths = by_path["sha256_chunks"]
     record["kernels"].append({
         "name": "sha256_chunks", "route": "cuda",

@@ -8,23 +8,26 @@ The linear recurrence  h_t = a_t h_{t-1} + b_t  has a closed-form adjoint
     da_t  = lam_t * h_{t-1}
     dh_0  = a_1 lam_1
 
-so the backward is one more associative scan plus elementwise ops, here
-in torch ops. Two ``autograd.Function``s carry it, as the reference's two
-``custom_vjp``s do:
+so the backward is one more associative scan plus elementwise ops
+(``closed_form_bwd``, in torch ops). Two ``autograd.Function``s carry it,
+as the reference's two ``custom_vjp``s do:
 
   * CUDA tensors: the Hopper kernel forward (``kernel.selective_scan_fwd``,
-    whose ``launches`` counter records it) or a raise, with the
-    closed-form backward at float32 (``_scan``/``_scan_bwd``). The kernel
-    keeps its state in f32 registers, so ``scan_dtype`` does not apply,
-    just as the reference's TPU kernel ignores it.
+    whose ``launches`` counter records it) and backward
+    (``kernel.selective_scan_bwd``, ``bwd_launches``), or a raise. The
+    kernels keep the state in f32 registers, so ``scan_dtype`` does not
+    apply, just as the reference's TPU kernel ignores it; the backward
+    computes ``closed_form_bwd``'s math at float32 (the reference's
+    ``_scan_bwd``), which the card tests hold it against.
   * CPU tensors: the closed-form path's forward (``ref.cf_scan``) and
     backward, chunked by ``_mem_chunk`` and with the scan pairs
     materialized in ``scan_dtype`` (``_cf_scan``).
 
-The launch is the custom op ``repro_torch::selective_scan_fwd``: on real
-CUDA tensors it calls the kernel, on fake ones (``FakeTensorMode``, the
-dry run) it gives the outputs' shapes only, and ``FlopCounterMode`` counts
-it by ``flops``. DTensors (tensor parallelism) go through ``local_map``:
+The launches are the custom ops ``repro_torch::selective_scan_fwd`` and
+``repro_torch::selective_scan_bwd``: on real CUDA tensors they call the
+kernels, on fake ones (``FakeTensorMode``, the dry run) they give the
+outputs' shapes only, and ``FlopCounterMode`` counts them by ``flops`` and
+``bwd_flops``. DTensors (tensor parallelism) go through ``local_map``:
 each process scans its own batch rows and channels.
 """
 from __future__ import annotations
@@ -61,6 +64,40 @@ def _(x, dt, A, B, C, D, h0):
 @register_flop_formula(torch.ops.repro_torch.selective_scan_fwd)
 def _launch_flops(x_shape, dt_shape, A_shape, *_, **__) -> int:
     return flops(*x_shape, A_shape[1])
+
+
+def bwd_flops(Bt, L, di, N) -> int:
+    """The adjoint's f32 FLOPs per (row, step, channel, state) element:
+    the states again (4), lam (3), lam h a (2), and the sums it feeds
+    (dA, d(dt), <lam, B>, dB, dC: 2 each)."""
+    return 19 * Bt * L * di * N
+
+
+@torch.library.custom_op("repro_torch::selective_scan_bwd",
+                         mutates_args=())
+def _launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                h0: torch.Tensor, y_bar: torch.Tensor,
+                hlast_bar: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    return kernel.selective_scan_bwd(x, dt, A, B, C, D, h0, y_bar,
+                                     hlast_bar)
+
+
+@_launch_bwd.register_fake
+def _(x, dt, A, B, C, D, h0, y_bar, hlast_bar):
+    f32 = torch.float32
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape, dtype=f32),
+            A.new_empty(A.shape, dtype=f32), B.new_empty(B.shape),
+            C.new_empty(C.shape), D.new_empty(D.shape, dtype=f32),
+            h0.new_empty(h0.shape, dtype=f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.selective_scan_bwd)
+def _launch_bwd_flops(x_shape, dt_shape, A_shape, *_, **__) -> int:
+    return bwd_flops(*x_shape, A_shape[1])
 
 
 def _mem_chunk(chunk: int, x) -> int:
@@ -121,7 +158,8 @@ def closed_form_bwd(x, dt, A, B, C, D, h0, y_bar, hlast_bar, *, chunk: int,
 
 
 class _KernelScan(torch.autograd.Function):
-    """The Hopper kernel's forward, the closed-form backward at f32."""
+    """The Hopper kernels' forward and backward (the closed form's math
+    at f32)."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, D, h0, chunk):
@@ -132,10 +170,7 @@ class _KernelScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, y_bar, hlast_bar):
-        saved = ctx.saved_tensors
-        return (*closed_form_bwd(*saved, y_bar, hlast_bar,
-                                 chunk=_mem_chunk(ctx.chunk, saved[0])),
-                None)
+        return (*_launch_bwd(*ctx.saved_tensors, y_bar, hlast_bar), None)
 
 
 class _ClosedFormScan(torch.autograd.Function):

@@ -478,8 +478,8 @@ def test_flash_attention_backward_matches_cpu(B, S, H, KV, D, causal, dtype):
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_backward_matches_cpu(Bt, L, di, N, dtype):
-    """The CUDA Function (kernel forward, closed-form backward at f32)
-    against the CPU Function (closed-form forward and backward at f32),
+    """The CUDA Function (the forward and backward kernels) against the
+    CPU Function (closed-form forward and backward at f32),
     from the same inputs (x, B, C in ``dtype``): f32 2e-5; bf16 2e-2,
     where the cotangents of x, B and C are rounded to bf16 on both;
     scaled as ``_assert_grads_close`` says (at the train shape, f32 sums
@@ -497,9 +497,9 @@ def test_selective_scan_backward_matches_cpu(Bt, L, di, N, dtype):
 
     def fn(*a):
         return sops.selective_scan(*a, chunk=512)
-    before = sk.launches
+    before, bwd_before = sk.launches, sk.bwd_launches
     card = _grads(fn, args, cot, "cuda", dts)
-    assert sk.launches == before + 1
+    assert (sk.launches, sk.bwd_launches) == (before + 1, bwd_before + 1)
     host = _grads(fn, args, cot, "cpu", dts)
     _assert_grads_close(card, host, TOL[dtype])
 
@@ -539,6 +539,154 @@ def test_wide_backward_matches_cpu(dtype):
     card = _grads(ss, args, cot, "cuda", dts)
     assert sk.launches == before + 1
     _assert_grads_close(card, _grads(ss, args, cot, "cpu", dts), TOL[dtype])
+
+
+# ------------------------------------------------- the scan's backward kernel
+def _bwd_inputs(Bt, L, di, N, dtype, seed, proj=None):
+    """The scan's inputs (x, B, C in ``dtype``; h0 nonzero) and nonzero
+    cotangents of y and h_last; with ``proj``, B and C are the last 2N
+    columns of a (Bt, L, proj) x_proj output, as the model slices them."""
+    x, dt, A, B, C, D, h0 = _scan_inputs(Bt, L, di, N, dtype, seed)
+    if proj:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        p = torch.randn((Bt, L, proj), generator=g, device="cuda").to(dtype)
+        B, C = p[..., proj - 2 * N:proj - N], p[..., proj - N:]
+    rng = np.random.default_rng(seed + 1)
+    y_bar = torch.from_numpy(rng.normal(size=(Bt, L, di)).astype(
+        np.float32)).to("cuda", dtype)
+    h_bar = torch.from_numpy(rng.normal(size=(Bt, di, N)).astype(
+        np.float32)).to("cuda")
+    return (x, dt, A, B, C, D, h0), (y_bar, h_bar)
+
+
+def _ref_grads(args, cots):
+    """``torch.autograd.grad`` of the plain ``selective_scan_ref``."""
+    from repro_torch.kernels.mamba_scan import ref as sref
+    ts = [t.detach().clone().requires_grad_() for t in args]
+    y, h = sref.selective_scan_ref(*ts, chunk=256)
+    return torch.autograd.grad((y, h), ts, cots)
+
+
+SCAN_BWD = [
+    # the train cell's shape, B and C slices of a 576-B x_proj row
+    ((2, 2048, 8192, 16), torch.bfloat16, 256 + 32),
+    ((2, 463, 8192, 16), torch.bfloat16, 256 + 32),   # jamba's, ragged
+    ((2, 463, 8192, 16), torch.float32, None),
+    ((1, 2048, 4096, 16), torch.bfloat16, None),       # 18a's local shard
+    ((2, 300, 1000, 17), torch.float32, None),         # the wide path
+    ((2, 128, 512, 32), torch.float32, 40 + 64),       # 12b's state
+    ((2, 128, 512, 32), torch.bfloat16, None),
+    ((1, 64, 32, 8), torch.float32, None),             # the reference's
+    ((2, 37, 130, 5), torch.bfloat16, None),           # odd N, ragged
+    ((1, 32, 64, 16), torch.float32, None),            # one tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,proj", SCAN_BWD)
+def test_selective_scan_bwd_kernel_matches_plain(shape, dtype, proj):
+    """The backward kernel's seven cotangents against ``closed_form_bwd``
+    at f32 (the plain version it replaces) and against autograd of the
+    plain forward, from nonzero h0 and h_last cotangent: f32 2e-5, bf16
+    2e-2, scaled as ``_assert_grads_close`` says (the kernel sums over
+    time, channels and rows in another order than either)."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+    Bt, L, di, N = shape
+    args, cots = _bwd_inputs(Bt, L, di, N, dtype, seed=L + N, proj=proj)
+    if proj:
+        assert not args[3].is_contiguous() and args[3].stride(1) == proj
+    before = sk.bwd_launches
+    got = sk.selective_scan_bwd(*args, *cots)
+    torch.cuda.synchronize()
+    assert sk.bwd_launches == before + 1
+    assert [g.dtype for g in got] == [t.dtype for t in args]
+    assert [g.shape for g in got] == [t.shape for t in args]
+    got = [g.float().cpu() for g in got]
+    plain = sops.closed_form_bwd(*args, *cots, chunk=L)
+    _assert_grads_close(got, [g.float().cpu() for g in plain], TOL[dtype])
+    del plain
+    ref = _ref_grads(args, cots)
+    _assert_grads_close(got, [g.float().cpu() for g in ref], TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_selective_scan_bwd_repeats_its_bits():
+    """Every sum over channels, groups and rows is taken in a fixed order
+    (no atomics): two calls give equal bits, at the train shape and on
+    the wide path."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    for shape, dtype in (((2, 2048, 8192, 16), torch.bfloat16),
+                         ((2, 128, 512, 40), torch.float32)):
+        args, cots = _bwd_inputs(*shape, dtype, seed=3, proj=None)
+        a = sk.selective_scan_bwd(*args, *cots)
+        b = sk.selective_scan_bwd(*args, *cots)
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 20])
+def test_selective_scan_bwd_past_the_grid_runs_in_launches(N):
+    """More than 65535 batch rows: two launches, then the rows' dA and dD
+    added once; y_bar with a strided channel dim, copied first."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+    args, (y_bar, h_bar) = _bwd_inputs(65537, 3, 8, N, torch.float32,
+                                       seed=N)
+    ys = torch.stack([y_bar, y_bar], -1)[..., 0]
+    before = sk.bwd_launches
+    got = sk.selective_scan_bwd(*args, ys, h_bar)
+    torch.cuda.synchronize()
+    assert sk.bwd_launches == before + 2
+    want = sops.closed_form_bwd(*args, y_bar, h_bar, chunk=3)
+    _assert_grads_close([g.cpu() for g in got], [g.cpu() for g in want],
+                        TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_selective_scan_bwd_refuses_what_it_cannot_take():
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    args, (y_bar, h_bar) = _bwd_inputs(1, 40, 64, 16, torch.bfloat16,
+                                       seed=5)
+    with pytest.raises(TypeError, match="y_bar"):
+        sk.selective_scan_bwd(*args, y_bar.float(), h_bar)
+    with pytest.raises(ValueError, match="hlast_bar"):
+        sk.selective_scan_bwd(*args, y_bar, h_bar[:, :8])
+    with pytest.raises(ValueError, match="CUDA"):
+        sk.selective_scan_bwd(*args, y_bar.cpu(), h_bar)
+    with pytest.raises(TypeError, match="float32 dt"):
+        sk.selective_scan_bwd(args[0], args[1].bfloat16(), *args[2:], y_bar,
+                              h_bar)
+
+
+@pytest.mark.cuda
+def test_selective_scan_train_path_never_takes_the_plain_backward(
+        monkeypatch):
+    """The CUDA Function's backward is one kernel launch; the plain
+    version is not reached."""
+    _card()
+    from repro_torch.kernels.mamba_scan import kernel as sk
+    from repro_torch.kernels.mamba_scan import ops as sops
+
+    def refused(*a, **k):
+        raise AssertionError("closed_form_bwd on a CUDA path")
+    monkeypatch.setattr(sops, "closed_form_bwd", refused)
+    args, cots = _bwd_inputs(2, 96, 256, 16, torch.bfloat16, seed=7,
+                             proj=16 + 32)
+    ts = [t.detach().clone().requires_grad_() for t in args]
+    f0, b0 = sk.launches, sk.bwd_launches
+    y, h = sops.selective_scan(*ts)
+    grads = torch.autograd.grad((y, h), ts, cots)
+    torch.cuda.synchronize()
+    assert (sk.launches, sk.bwd_launches) == (f0 + 1, b0 + 1)
+    _assert_grads_close([g.float().cpu() for g in grads],
+                        [g.float().cpu() for g in _ref_grads(args, cots)],
+                        TOL[torch.bfloat16])
 
 
 # ---------------------------------------------------------------------------

@@ -276,26 +276,240 @@ def test_closed_form_bwd_carries_across_chunks(chunk):
                                    rtol=2e-5)
 
 
+class ScanBwdStandIn:
+    """One launch of the backward kernel: refuses more than ``MAX_GRID``
+    rows, an input it would not address and workspaces of other shapes
+    than ``bwd_workspaces`` gives; computes each row's cotangents with the
+    plain ``closed_form_bwd`` into the run's outputs and row partials."""
+
+    def __init__(self):
+        self.rows = []
+        self.ins = []
+
+    def __call__(self, ins, outs, ws):
+        x, dt, A, B, C, D, h0, y_bar, h_bar = ins
+        Bt, L, di = x.shape
+        N = A.shape[1]
+        assert Bt <= kernel.MAX_GRID
+        assert all(t.stride(-1) == 1 for t in (x, dt, B, C, y_bar))
+        assert all(t.is_contiguous() for t in (A, D, h0, h_bar, *outs,
+                                               *ws[:2]))
+        want = kernel.bwd_workspaces(Bt, L, di, N)
+        assert [t.shape[0] for t in ws[:2]] == [Bt, Bt]
+        for name, t in zip(("hb", "part", "sums"), ws[2:]):
+            shape = want[name]
+            assert (t is None) == (shape is None)
+            if t is not None:
+                assert t.dtype == torch.float32 and t.is_contiguous()
+                rows = 2 if name == "sums" else 0
+                assert t.shape[rows] >= Bt
+                assert t.shape[:rows] + t.shape[rows + 1:] == \
+                    shape[:rows] + shape[rows + 1:]
+        for r in range(Bt):
+            one = [t if i in (2, 5) else t[r:r + 1]
+                   for i, t in enumerate(ins)]
+            dx, ddt, dA, dB, dC, dD, dh0 = ops.closed_form_bwd(*one,
+                                                               chunk=L)
+            for out, g in zip(outs, (dx, ddt, dB, dC, dh0)):
+                out[r] = g[0]
+            ws[0][r], ws[1][r] = dA, dD
+        self.rows.append(Bt)
+        self.ins.append(ins)
+
+
+def _add_rows(dA_rows, dD_rows, dA, dD):
+    dA.copy_(dA_rows.sum(0))
+    dD.copy_(dD_rows.sum(0))
+
+
 @pytest.mark.parametrize("Bt,L,di,N", SWEEP)
 def test_kernel_function_backward_matches_reference_vjp(Bt, L, di, N,
                                                         monkeypatch):
     """The CUDA Function's wiring, on the CPU: its forward is the kernel
-    (here the plain version stands in for it, as the kernel runs only on
-    the card) and its backward the closed form at f32 and the outer chunk
-    ``_mem_chunk`` (the reference's ``_scan_bwd``)."""
+    and its backward the backward kernel (here the plain versions stand in
+    for them, through the backward's wrapper, as the kernels run only on
+    the card), against the reference's closed-form VJP at f32
+    (``_scan_bwd``)."""
     calls = []
 
     def stand_in(*a):
-        calls.append(1)
+        calls.append("fwd")
         return ref.selective_scan_ref(*a)
 
+    def bwd_stand_in(*a):
+        calls.append("bwd")
+        return kernel._run_bwd(*a, ScanBwdStandIn(), _add_rows)
+
     monkeypatch.setattr(kernel, "selective_scan_fwd", stand_in)
+    monkeypatch.setattr(kernel, "selective_scan_bwd", bwd_stand_in)
     args = _inputs(Bt, L, di, N, seed=L + di + 2)
     g_y, g_h = _cotangents(Bt, L, di, N, seed=L + 1)
     want = _vjp_reference(args, g_y, g_h, jops._mem_chunk(16, args[0]),
                           "float32")
     got = _grads(lambda *a: ops._KernelScan.apply(*a, 16), args, g_y, g_h)
-    assert calls == [1]
+    assert calls == ["fwd", "bwd"]
     for a, b in zip(got, want):
         np.testing.assert_allclose(_np(a), np.asarray(b), atol=2e-5,
                                    rtol=2e-5)
+
+
+@pytest.mark.parametrize("N", [5, 17, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_bwd_wrapper_runs_past_the_grid(monkeypatch, N, dtype):
+    """More batch rows than one launch takes (the limit lowered to 3):
+    runs of 3 and 1 rows, each on its views of the outputs, then dA and
+    dD added over every row once; the cotangents, each in its input's
+    dtype, against the plain backward of the whole batch and, at f32,
+    the reference's closed-form VJP."""
+    monkeypatch.setattr(kernel, "MAX_GRID", 3)
+    Bt, L, di = 4, 40, 12
+    args = _inputs(Bt, L, di, N, seed=N)
+    g_y, g_h = _cotangents(Bt, L, di, N, seed=N + 1)
+    ts = _torch(args, dtype)
+    cots = (torch.from_numpy(g_y).to(TDT[dtype]), torch.from_numpy(g_h))
+    launch = ScanBwdStandIn()
+    got = kernel._run_bwd(*ts, *cots, launch, _add_rows)
+    assert launch.rows == [3, 1]
+    assert [g.dtype for g in got] == [t.dtype for t in ts]
+    plain = ops.closed_form_bwd(*ts, *cots, chunk=L)
+    tol = TOL[dtype]
+    for a, b in zip(got, plain):
+        np.testing.assert_allclose(_np(a), _np(b), atol=tol, rtol=tol)
+    if dtype == "float32":
+        want = _vjp_reference(args, g_y, g_h, L, "float32")
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(_np(a), np.asarray(b), atol=tol,
+                                       rtol=tol)
+
+
+def test_kernel_bwd_workspaces():
+    """The backward's f32 workspaces: at the train cell's shape the state
+    entering each of 63 later tiles (66 MB) and 256 channel blocks'
+    partials of dB and dC; a group's partials only past 16 state columns;
+    one launch's rows at most; no tile state for a single tile."""
+    ws = kernel.bwd_workspaces(2, 2048, 8192, 16)
+    assert ws == {"hb": (2, 63, 8192, 16), "part": (2, 256, 2048, 32),
+                  "sums": None, "dA_rows": (2, 8192, 16),
+                  "dD_rows": (2, 8192)}
+    assert 4 * np.prod(ws["hb"]) == 66_060_288
+    assert kernel.bwd_workspaces(2, 463, 1000, 17)["sums"] == (
+        2, 2, 2, 463, 1000)
+    assert kernel.bwd_workspaces(2, 463, 1000, 17)["part"] == (
+        2, 32, 463, 34)
+    big = kernel.bwd_workspaces(70000, 32, 8, 4)
+    assert big["hb"] == (65535, 0, 8, 4) and big["dA_rows"] == (70000, 8, 4)
+    assert big["part"] == (65535, 1, 32, 8)
+
+
+def _bad_bwd_args(case):
+    x, dt, A, B, C, D, h0 = _torch(_inputs(2, 8, 6, 4, seed=12), "bfloat16")
+    y_bar, h_bar = torch.zeros(2, 8, 6, dtype=torch.bfloat16), \
+        torch.zeros(2, 6, 4)
+    return {"y_bar dtype": (x, dt, A, B, C, D, h0, y_bar.float(), h_bar),
+            "hlast_bar dtype": (x, dt, A, B, C, D, h0, y_bar, h_bar.double()),
+            "y_bar shape": (x, dt, A, B, C, D, h0, y_bar[:, :4], h_bar),
+            "hlast_bar shape": (x, dt, A, B, C, D, h0, y_bar, h_bar[..., :2]),
+            "x float16": (x.half(), dt, A, B.half(), C.half(), D, h0,
+                          y_bar.half(), h_bar),
+            "dt bfloat16": (x, dt.bfloat16(), A, B, C, D, h0, y_bar, h_bar),
+            "B shape": (x, dt, A, B[:, :4], C, D, h0, y_bar, h_bar),
+            "empty": (x[:, :0], dt[:, :0], A, B[:, :0], C[:, :0], D, h0,
+                      y_bar[:, :0], h_bar)}[case]
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("y_bar dtype", TypeError, "y_bar in x's dtype"),
+    ("hlast_bar dtype", TypeError, "float32 hlast_bar"),
+    ("y_bar shape", ValueError, "y_bar"),
+    ("hlast_bar shape", ValueError, "hlast_bar"),
+    ("x float16", TypeError, "float32 or bfloat16 x"),
+    ("dt bfloat16", TypeError, "float32 dt"),
+    ("B shape", ValueError, "B"),
+    ("empty", ValueError, "empty dim"),
+])
+def test_kernel_bwd_wrapper_checks_its_arguments(case, error, match):
+    """What the backward kernel cannot take raises before any launch."""
+    launch = ScanBwdStandIn()
+    with pytest.raises(error, match=match):
+        kernel._run_bwd(*_bad_bwd_args(case), launch, _add_rows)
+    assert launch.rows == []
+
+
+def test_kernel_bwd_refuses_cpu_tensors():
+    args = _torch(_inputs(1, 8, 8, 4, seed=8), "float32")
+    with pytest.raises(ValueError, match="selective_scan_bwd takes CUDA"):
+        kernel.selective_scan_bwd(*args, torch.zeros(1, 8, 8),
+                                  torch.zeros(1, 8, 4))
+    assert kernel.bwd_launches == 0
+
+
+def test_kernel_bwd_wrapper_takes_views():
+    """B and C strided in time (slices of the x_proj output) reach the
+    launch as they are; y_bar with a strided channel dim and A, h0 as
+    transposed views are copied first."""
+    Bt, L, di, N = 2, 24, 8, 4
+    x, dt, A, _, _, D, h0 = _torch(_inputs(Bt, L, di, N, seed=13),
+                                   "float32")
+    proj = torch.randn(Bt, L, 3 + 2 * N)
+    B, C = proj[..., 3:3 + N], proj[..., 3 + N:]
+    g_y, g_h = _cotangents(Bt, L, di, N, seed=14)
+    y_bar = torch.from_numpy(g_y)
+    ys = torch.stack([y_bar, y_bar], -1)[..., 0]
+    At = A.t().contiguous().t()
+    h0t = h0.transpose(1, 2).contiguous().transpose(1, 2)
+    assert ys.stride(2) == 2 and not At.is_contiguous()
+    launch = ScanBwdStandIn()
+    got = kernel._run_bwd(x, dt, At, B, C, D, h0t, ys,
+                          torch.from_numpy(g_h), launch, _add_rows)
+    ins = launch.ins[0]
+    assert ins[3].data_ptr() == B.data_ptr() and ins[3].stride(1) == 3 + 2 * N
+    assert ins[7].stride(-1) == 1
+    want = ops.closed_form_bwd(x, dt, A, B, C, D, h0, y_bar,
+                               torch.from_numpy(g_h), chunk=L)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("scan_dtype", ["float32", "bfloat16"])
+def test_cpu_backward_stays_closed_form(monkeypatch, scan_dtype):
+    """CPU tensors take ``_ClosedFormScan``: its gradients are those of
+    ``closed_form_bwd`` at the path's outer chunk and ``scan_dtype``, bit
+    for bit, and the backward kernel is neither called nor counted."""
+    def refused(*a):
+        raise AssertionError("the backward kernel on a CPU path")
+
+    monkeypatch.setattr(kernel, "selective_scan_bwd", refused)
+    monkeypatch.setattr(kernel, "bwd_launches", 0)
+    args = _inputs(2, 40, 12, 6, seed=15)
+    g_y, g_h = _cotangents(2, 40, 12, 6, seed=16)
+    got = _grads(lambda *a: ops.selective_scan(*a, chunk=16,
+                                               scan_dtype=scan_dtype),
+                 args, g_y, g_h)
+    ts = _torch(args, "float32")
+    want = ops.closed_form_bwd(*ts, torch.from_numpy(g_y),
+                               torch.from_numpy(g_h),
+                               chunk=ops._mem_chunk(16, ts[0]),
+                               sdt=TDT[scan_dtype])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert kernel.bwd_launches == 0
+
+
+def test_bwd_op_is_fake_and_counts_its_flops():
+    """On fake tensors the backward's custom op gives each cotangent's
+    shape and dtype without a launch; FlopCounterMode counts
+    ``bwd_flops``, 19 per (row, step, channel, state) element."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    Bt, L, di, N = 2, 2048, 8192, 16
+    bf = torch.bfloat16
+    with FakeTensorMode():
+        f = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt)
+        args = (f(Bt, L, di, dt=bf), f(Bt, L, di), f(di, N),
+                f(Bt, L, N, dt=bf), f(Bt, L, N, dt=bf), f(di), f(Bt, di, N),
+                f(Bt, L, di, dt=bf), f(Bt, di, N))
+        with FlopCounterMode(display=False) as fc:
+            outs = torch.ops.repro_torch.selective_scan_bwd(*args)
+    assert [(tuple(o.shape), o.dtype) for o in outs] == [
+        (tuple(a.shape), a.dtype) for a in args[:7]]
+    assert fc.get_total_flops() == 19 * Bt * L * di * N
+    assert kernel.bwd_launches == 0
